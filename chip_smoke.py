@@ -9,21 +9,38 @@ Phases, in order; any failure exits non-zero:
   2. print the card's name and power limit (nvidia-smi);
   3. small MSMs at c = 16 (G1) and c = 12 (G2), and an all-zero scalar
      vector, against the host oracle;
-  4. the main path at full size: compile_tier(50, 16) at universe 100 and
+  4. the prove path at full size: compile_tier(50, 16) at universe 100 and
      depth 28 (1,316,341 constraints, domain 2^21), setup, the witness
-     pipeline, the native solve with the device commitment MSM, two proves
-     and the verification of both on the host pairing, with the launch
-     count of every kernel (each must be above 0);
-  5. every kernel held against its plain PyTorch version on the card at
-     the largest shape the main path launched it with: the Fr/Fp kernels
-     and one NTT over the 2^21 domain, the CSR evaluation of the main
+     pipeline (leaves, tree and CEX commitments on the Poseidon kernels),
+     the native solve with the device commitment MSM, two proves and the
+     verification of both on the host pairing, with the launch count of
+     every kernel of the path (each must be above 0);
+  5. every kernel of the prove path held against its plain PyTorch version
+     on the card at the largest shape the path launched it with: the Fr/Fp
+     kernels and one NTT over the 2^21 domain, the CSR evaluation of the
      path's A matrix at its witness, G1/G2 adds over as many pairs as
      setup adds (identity, equal and negated pairs included), and the
-     segmented scan over the main path's own MSM streams (the 30.8 M-point
-     G1 witness stream in full; the 33.6 M-point G1 H stream and the
-     42.3 M-point G2 stream on head-aligned slices); each kernel timed
-     with CUDA events beside its plain version and its bound.
-The last two lines are the kernel JSON line and the status line.
+     segmented scan over the path's own MSM streams (the 30.8 M-point G1
+     witness stream in full; the 33.6 M-point G1 H stream and the 42.3
+     M-point G2 stream on head-aligned slices); each kernel timed with
+     CUDA events beside its plain version and its bound;
+  6. the tree path: a depth-28 account tree over 2^27 random leaves made
+     on the card, built level by level with the sparse Poseidon kernel,
+     its whole first level held against the plain-schedule kernel, 64
+     nodes of every level against the host Poseidon of their children,
+     and 16 inclusion proofs (and a changed leaf that must fail);
+  7. the witness-service path at the reference's production constants
+     (500 assets, 12 tiers, depth 28, tiers 500:200 and 50:1380) over
+     SERVICE_ACCOUNTS seeded accounts: prepare, run_witness,
+     run_userproof on sqlite, a second run that writes nothing, and 256
+     sampled userproof rows verified against the root and the host leaf
+     hash;
+  8. every Poseidon kernel held against its plain version, bit for bit,
+     on a slice of the inputs of its largest launch on paths 4, 6 and 7,
+     and timed on the whole of them.
+Launches are counted per path: every count is set to 0 just before a path
+and read just after it.  The last two lines are the kernel JSON line and
+the status line.
 """
 
 import json
@@ -31,6 +48,7 @@ import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -44,6 +62,11 @@ INT32_MUL_PER_S = 132 * 64 * 1.98e9
 # a*b products + 1 for m + 8 wide m*p products), a wide product = lo + hi
 MULS_PER_MONT = 8 * (16 + 1 + 16)
 MONTS_PER_ADD = {3: 14, 6: 42}      # G1: 12 + two 3b; G2: 3 x (12 + two 3b)
+# Montgomery products of one sparse-schedule Poseidon(2): 8 full rounds x
+# (9 S-box + 9 mix) + 57 S-boxes x 3 + 56 sparse rows x 5 + 9 dense
+SPARSE3_MONTS = 604
+# accounts of the witness-service path (2^16; not below 2^14)
+SERVICE_ACCOUNTS = 1 << 16
 
 REPLACES = {
     "g1_add": "zkpos_tpu/ops/ec_pallas.py:150",
@@ -58,6 +81,14 @@ REPLACES = {
                  "kernel)",
     "csr_eval": "zkpos_tpu/groth16/qap_device.py:107 (XLA, no Pallas "
                 "kernel)",
+    "poseidon_sparse3": "zkpos_tpu/ops/poseidon_f32_pallas.py:273",
+    "poseidon_plain_t3": "zkpos_tpu/ops/poseidon_pallas.py:99",
+    "poseidon_plain_t6": "zkpos_tpu/ops/poseidon.py:70 (XLA permute, no "
+                         "Pallas kernel)",
+    "poseidon_plain_t17": "zkpos_tpu/ops/poseidon.py:70 (XLA permute, no "
+                          "Pallas kernel)",
+    "poseidon_chain": "zkpos_tpu/ops/poseidon.py:117 (XLA lax.scan of "
+                      "hash_chain_mont, no Pallas kernel)",
 }
 SOURCES = {
     "g1_add": "zkpos_tpu_torch/csrc/ec_add.cu",
@@ -65,6 +96,38 @@ SOURCES = {
     "seg_scan_g1": "zkpos_tpu_torch/csrc/seg_scan.cu",
     "seg_scan_g2": "zkpos_tpu_torch/csrc/seg_scan.cu",
 }
+POSEIDON_SOURCE = "zkpos_tpu_torch/csrc/poseidon.cu"
+# the kernels each path must launch
+PR1_KERNELS = ("g1_add", "g2_add", "seg_scan_g1", "seg_scan_g2", "ff_mul",
+               "ff_add", "ff_sub", "ff_pow", "ntt_stage", "csr_eval")
+PATH_KERNELS = {
+    "prove": PR1_KERNELS + ("poseidon_sparse3", "poseidon_plain_t6",
+                            "poseidon_plain_t17", "poseidon_chain"),
+    "tree": ("poseidon_sparse3", "poseidon_plain_t3", "ff_mul"),
+    "service": ("poseidon_sparse3", "poseidon_plain_t6",
+                "poseidon_plain_t17", "poseidon_chain", "ff_mul"),
+}
+
+
+def replaces(name):
+    """REPLACES, with the plain-schedule kernel at a width not listed
+    there (the chains' narrower tail blocks) under the XLA permute."""
+    if name.startswith("poseidon_plain_t") and name not in REPLACES:
+        return REPLACES["poseidon_plain_t6"]
+    return REPLACES[name]
+
+
+def source(name):
+    if name.startswith("poseidon_"):
+        return POSEIDON_SOURCE
+    return SOURCES.get(name, "zkpos_tpu_torch/csrc/fr_kernels.cu")
+
+
+def need(launches, path):
+    missing = [k for k in PATH_KERNELS[path] if launches.get(k, 0) == 0]
+    if missing:
+        fail(f"kernels not launched on the {path} path: "
+             + ", ".join(missing))
 
 
 def log(*a):
@@ -76,7 +139,7 @@ def fail(msg):
     sys.exit(1)
 
 
-# --- helpers on the card ------------------------------------------------------
+# --- helpers on the card -----------------------------------------------------
 
 def cuda_ms(fn, reps=3):
     import torch
@@ -154,7 +217,7 @@ def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-# --- phases ---------------------------------------------------------------------
+# --- phases ------------------------------------------------------------------
 
 def phase_build():
     from zkpos_tpu_torch.utils import build
@@ -204,7 +267,7 @@ def phase_msm_oracle():
         fail("msm of zero scalars is not the identity")
 
 
-# --- the main path ------------------------------------------------------------------
+# --- the main path -----------------------------------------------------------
 
 E8 = 10 ** 8
 
@@ -303,7 +366,7 @@ def phase_main(universe=100, tier=50, batch=16, tier_count=None, depth=None,
     accounts = make_accounts(C, cex, batch, min(tier, 30), AccountAsset,
                              AccountInfo, calculate_asset_value_for_collateral)
     by_tier, capacity = wcore.prepare_accounts({tier: accounts})
-    tree = wcore.build_account_tree(by_tier, capacity)
+    tree = wcore.build_account_tree(by_tier, capacity, device=device)
     wits = list(wcore.generate_batch_witnesses(tree, by_tier, cex))
     if len(wits) != 1:
         fail(f"expected one batch witness, got {len(wits)}")
@@ -427,7 +490,26 @@ def scan_slices(heads, W, Np, span):
             (lo, min(lo + int(seg[i]) + 4096, lo + 3 * span, N)), (t0, N)]
 
 
-def phase_kernels(cs, pk, scs, launches, sizes):
+def make_row(name, err, ms, n, plain_ms, plain_n, byts, muls):
+    """One kernel's entry of the kernels line (its launches are filled in
+    from the paths' counts at the end); fails on any disagreement."""
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = muls / INT32_MUL_PER_S * 1e3
+    log(f"kernel {name}: max_abs_err={err} ms={ms:.3f} (n={n}) "
+        f"plain_ms={plain_ms:.3f} (n={plain_n}) bound_ms="
+        f"{max(t_bytes, t_ops):.3f}")
+    if err != 0:
+        fail(f"{name} disagrees with its plain version")
+    return {"name": name, "route": "cuda", "source": source(name),
+            "replaces": replaces(name), "launches": 0,
+            "max_abs_err": err, "ms": round(ms, 4), "n": n,
+            "plain_ms": round(plain_ms, 4), "plain_n": plain_n,
+            "bound_ms": round(max(t_bytes, t_ops), 4),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def phase_kernels(cs, pk, scs, sizes):
     """Each kernel on the card at the largest shape the main path launched
     it with (the main path's own streams and matrix where it has them),
     held against its plain version on the same inputs: exact agreement of
@@ -441,23 +523,8 @@ def phase_kernels(cs, pk, scs, launches, sizes):
     rpy = random.Random(3)
     rows = []
 
-    def row(name, err, ms, n, plain_ms, plain_n, byts, muls):
-        t_bytes = byts / HBM_BYTES_PER_S * 1e3
-        t_ops = muls / INT32_MUL_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": SOURCES.get(name, "zkpos_tpu_torch/csrc/fr_kernels.cu"),
-            "replaces": REPLACES[name], "launches": launches.get(name, 0),
-            "max_abs_err": err, "ms": round(ms, 4), "n": n,
-            "plain_ms": round(plain_ms, 4), "plain_n": plain_n,
-            "bound_ms": round(max(t_bytes, t_ops), 4),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-        log(f"kernel {name}: max_abs_err={err} ms={ms:.3f} (n={n}) "
-            f"plain_ms={plain_ms:.3f} (n={plain_n}) bound_ms="
-            f"{max(t_bytes, t_ops):.3f}")
-        if err != 0:
-            fail(f"{name} disagrees with its plain version")
+    def row(*args):
+        rows.append(make_row(*args))
 
     # field kernels: both fields, with 0, 1 and p - 1 among the operands
     for name, fn, plain, muls in (("ff_mul", F.mul, F.plain_mul,
@@ -597,6 +664,336 @@ def phase_kernels(cs, pk, scs, launches, sizes):
     return rows
 
 
+# --- the tree and witness-service paths, and the Poseidon kernels ------------
+
+def poseidon_monts(t):
+    """Montgomery products of one plain-schedule permutation of width t."""
+    from zkpos_tpu_torch.crypto.poseidon_params import R_FULL, partial_rounds
+    return R_FULL * (3 * t + t * t) + partial_rounds(t) * (3 + t * t)
+
+
+def chain_monts(n):
+    """Montgomery products of one chained hash of n inputs."""
+    if n <= 16:
+        return poseidon_monts(n + 1)
+    total, pos = poseidon_monts(17), 16
+    while pos < n:
+        k = min(15, n - pos)
+        total += poseidon_monts(k + 2)
+        pos += k
+    return total
+
+
+class LargestInputs:
+    """Keeps a copy of the input of the largest launch of each plain and
+    chain Poseidon kernel while installed, by wrapping ops.poseidon's
+    permute and chain_mont (the wrappers count their launches as ever).
+    Inputs of more than `cap` states are not kept: the one such launch, the
+    tree path's plain-schedule check, is rebuilt from the tree."""
+
+    def __init__(self, cap=1 << 20):
+        self.cap = cap
+        self.best = {}
+        self.orig = None
+
+    def _keep(self, name, n, x):
+        if n <= self.cap and n > self.best.get(name, (0, None))[0]:
+            self.best[name] = (n, x.clone())
+
+    def install(self):
+        from zkpos_tpu_torch.ops import poseidon as P
+        self.orig = (P.permute, P.chain_mont)
+        permute, chain_mont = self.orig
+
+        def keep_permute(state):
+            self._keep(f"poseidon_plain_t{state.shape[1]}", state.shape[0],
+                       state)
+            return permute(state)
+
+        def keep_chain(inputs):
+            self._keep("poseidon_chain", inputs.shape[0] * inputs.shape[1],
+                       inputs)
+            return chain_mont(inputs)
+        P.permute, P.chain_mont = keep_permute, keep_chain
+
+    def remove(self):
+        from zkpos_tpu_torch.ops import poseidon as P
+        P.permute, P.chain_mont = self.orig
+
+
+def random_leaves(n, seed, device="cuda"):
+    """n standard-form leaves below r on the device, from a seeded
+    generator: limbs 0-6 uniform, the top limb uniform below r's top
+    limb."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = torch.empty((n, 8), dtype=torch.int32, device=device)
+    for j in range(8):
+        hi = 0x30644E72 if j == 7 else 1 << 32
+        col = torch.randint(0, hi, (n,), generator=gen, dtype=torch.int64,
+                            device=device)
+        out[:, j] = torch.where(col >= 1 << 31, col - (1 << 32), col)
+    return out
+
+
+def phase_tree(log_leaves=27, depth=28, seed=7, device="cuda"):
+    """The depth-28 tree over 2^27 leaves, built and checked three ways.
+    Returns (tree, launches)."""
+    import torch
+    from zkpos_tpu_torch.crypto.bn254 import R, fr_from_bytes, fr_to_bytes
+    from zkpos_tpu_torch.crypto.poseidon_ref import poseidon
+    from zkpos_tpu_torch.merkle.tree import AccountTree, verify_proof
+    from zkpos_tpu_torch.ops import field as F, poseidon as P
+    n = 1 << log_leaves
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    leaves = random_leaves(n, seed, device)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    F.LAUNCHES.clear()
+    F.SIZES.clear()
+    t0 = time.time()
+    tree = AccountTree(depth=depth, device=device)
+    tree.build_from_leaves(leaves)
+    sync()
+    build_s = time.time() - t0
+    del leaves
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    # (3) the whole first level again, on the plain-schedule kernel
+    t0 = time.time()
+    lvl0 = tree.levels[0]
+    plain1 = P.hash2_mont(lvl0[0::2].contiguous(), lvl0[1::2].contiguous())
+    if not torch.equal(plain1, tree.levels[1]):
+        fail("tree level 1: the sparse and plain Poseidon kernels differ")
+    del plain1
+    sync()
+    plain_s = time.time() - t0
+    # (1) 64 random nodes of every level against their children
+    rng = random.Random(seed)
+    wanted, checks = [], []
+    for k in range(1, depth + 1):
+        n_k = tree.levels[k].shape[0]
+        pos = rng.sample(range(n_k), min(64, n_k))
+        for p_ in pos:
+            checks.append((k, len(wanted)))
+            wanted += [(k, [p_]), (k - 1, [2 * p_]), (k - 1, [2 * p_ + 1])]
+    nodes = tree.read_nodes(wanted)
+    for k, i in checks:
+        node, left, right = (fr_from_bytes(nodes[i + j][0])
+                             for j in range(3))
+        if poseidon([left, right]) != node:
+            fail(f"tree node at level {k} is not the hash of its children")
+    # (2) inclusion proofs, and a changed leaf that must fail
+    root = tree.root()
+    for key in [rng.randrange(n) for _ in range(16)]:
+        leaf = tree.get(key)
+        proof = tree.get_proof(key)
+        if not verify_proof(root, key, proof, leaf, depth):
+            fail(f"tree proof of key {key} does not verify")
+        bad = fr_to_bytes((fr_from_bytes(leaf) + 1) % R)
+        if verify_proof(root, key, proof, bad, depth):
+            fail(f"tree proof of key {key} verifies a changed leaf")
+    launches = dict(F.LAUNCHES)
+    log(json.dumps({"tree_path": {
+        "leaves": n, "depth": depth, "build_s": round(build_s, 3),
+        "hashes": n - 1, "hashes_per_s": round((n - 1) / build_s),
+        "peak_device_bytes": peak, "plain_level1_s": round(plain_s, 3),
+        "nodes_checked": len(checks), "proofs_checked": 16,
+        "launches": launches}}))
+    return tree, launches
+
+
+def make_user_base(C, cex, n_users, seed, AccountAsset, AccountInfo,
+                   collateral):
+    """n_users valid accounts by asset tier, from a seed, in the manner of
+    make_accounts: about 90 % hold 1 to 50 assets (the 50-asset tier), the
+    rest 51 to 500 (the 500-asset tier); collateral covers debt."""
+    rng = random.Random(seed)
+    coll = {}
+    out = {50: [], 500: []}
+    for _ in range(n_users):
+        if rng.random() < 0.9:
+            tier, k = 50, rng.randint(1, 50)
+        else:
+            tier, k = 500, rng.randint(51, 500)
+        assets = []
+        te = td = tc = 0
+        for idx in sorted(rng.sample(range(C.ASSET_COUNTS), k)):
+            eq = rng.randint(10, 1000) * E8
+            de = rng.randint(0, 2) * E8
+            lo = rng.randint(1, 3) * E8
+            assets.append(AccountAsset(index=idx, equity=eq, debt=de,
+                                       loan=lo, margin=lo,
+                                       portfolio_margin=lo))
+            price = cex[idx].base_price
+            if (idx, lo) not in coll:
+                coll[idx, lo] = collateral(lo, lo, lo, cex[idx])
+            te += eq * price
+            td += de * price
+            tc += coll[idx, lo]
+        out[tier].append(AccountInfo(account_id=b"", total_equity=te,
+                                     total_debt=td, total_collateral=tc,
+                                     assets=assets))
+    return out
+
+
+def phase_service(n_accounts=SERVICE_ACCOUNTS, seed=11, device="cuda"):
+    """The witness service at the reference's production constants.
+    Returns its launches."""
+    import base64
+    import torch
+    from zkpos_tpu_torch.crypto.bn254 import fr_to_bytes
+    from zkpos_tpu_torch.crypto.poseidon_ref import poseidon
+    from zkpos_tpu_torch.db.codec import decode_batch_witness
+    from zkpos_tpu_torch.merkle.tree import verify_proof
+    from zkpos_tpu_torch.ops import field as F
+    from zkpos_tpu_torch.services.config import ServiceConfig
+    from zkpos_tpu_torch.services.witness import WitnessService
+    from zkpos_tpu_torch.utils import constants as C
+    from zkpos_tpu_torch.utils import commitments as cm
+    from zkpos_tpu_torch.utils.types import (AccountAsset, AccountInfo,
+                                             CexAssetInfo, TierRatio)
+    os.environ.pop("ZKPOR_TEST_TIERS", None)
+    C.configure(asset_counts=500, tier_count=12, tree_depth=28)
+    t0 = time.time()
+    cex = make_cex_assets(C, TierRatio, CexAssetInfo,
+                          cm.calculate_precomputed_value,
+                          cm.padding_tier_ratios)
+    first_cex = [e for a in cex for e in cm.cex_asset_elements(a)]
+    by_tier = make_user_base(C, cex, n_accounts, seed, AccountAsset,
+                             AccountInfo,
+                             cm.calculate_asset_value_for_collateral)
+    phases = {"make_accounts": round(time.time() - t0, 3)}
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    F.LAUNCHES.clear()
+    F.SIZES.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = WitnessService(ServiceConfig(
+            db_path=os.path.join(tmp, "zkpos.db")), device=device)
+        counts = {}
+        for name, fn in (("prepare", lambda: svc.prepare(by_tier, cex)),
+                         ("run_witness", svc.run_witness),
+                         ("run_userproof", svc.run_userproof),
+                         ("run_witness_again", svc.run_witness),
+                         ("run_userproof_again", svc.run_userproof)):
+            t0 = time.time()
+            counts[name] = fn()
+            sync()
+            phases[name] = round(time.time() - t0, 3)
+            log(json.dumps({"service_phase": name,
+                            "seconds": phases[name]}))
+        launches = dict(F.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        tiers = C.get_tiers()
+        batches = sum(len(svc.accounts[k]) // tiers[k] for k in svc.accounts)
+        if (counts["run_witness"] != batches
+                or svc.witness_model.count() != batches):
+            fail(f"witness rows: {counts['run_witness']} written, "
+                 f"{svc.witness_model.count()} stored, {batches} expected")
+        if (counts["run_userproof"] != svc.capacity
+                or svc.userproof_model.count() != svc.capacity):
+            fail(f"userproof rows: {counts['run_userproof']} written, "
+                 f"expected {svc.capacity}")
+        if counts["run_witness_again"] or counts["run_userproof_again"]:
+            fail("a second run of the service wrote rows")
+        t0 = time.time()
+        root = svc.tree.root()
+        by_index = {a.account_index: a for k in svc.accounts
+                    for a in svc.accounts[k]}
+        rng = random.Random(seed)
+        sample = rng.sample(range(svc.capacity), min(256, svc.capacity))
+        for idx in sample:
+            row = svc.userproof_model.get_by_index(idx)
+            config = json.loads(row.config)
+            leaf = base64.b64decode(row.account_leaf)
+            proof = [base64.b64decode(p_) for p_ in config["Proof"]]
+            if leaf != cm.account_info_to_hash(by_index[idx]):
+                fail(f"userproof {idx}: leaf differs from the host hash")
+            if config["Root"] != root.hex() or not verify_proof(
+                    root, idx, proof, leaf):
+                fail(f"userproof {idx} does not verify against the root")
+        wit = decode_batch_witness(
+            svc.witness_model.get_batch_witness_by_height(0).witness_data)
+        if wit.before_cex_assets_commitment != fr_to_bytes(
+                poseidon(first_cex)):
+            fail("the first batch's CEX commitment differs from the host "
+                 "Poseidon")
+        phases["checks"] = round(time.time() - t0, 3)
+        capacity = svc.capacity
+        del svc
+    log(json.dumps({"service_path": {
+        "accounts": n_accounts,
+        "accounts_by_tier": {k: len(v) for k, v in by_tier.items()},
+        "capacity": capacity, "batches": batches, "phases_s": phases,
+        "peak_device_bytes": peak, "userproofs_checked": len(sample),
+        "launches": launches}}))
+    return launches
+
+
+def phase_poseidon_kernels(tree, inputs):
+    """Each Poseidon kernel against its plain version on the card, bit for
+    bit, on a slice of the inputs of its largest launch (hashes are
+    independent), and timed on the whole launch."""
+    import torch
+    from zkpos_tpu_torch.ops import poseidon as P, poseidon_sparse as S
+    rows = []
+    lvl0 = tree.levels[0]
+    a_all, b_all = lvl0[0::2], lvl0[1::2]
+    n = a_all.shape[0]
+    s = 1 << 18
+    a, b = a_all[:s].contiguous(), b_all[:s].contiguous()
+    k = S.hash2_mont_sparse(a, b)
+    p, plain_ms = timed(lambda: S.plain_hash2_mont_sparse(a, b))
+    ms = cuda_ms(lambda: S.hash2_mont_sparse(a_all, b_all), reps=2)
+    rows.append(make_row("poseidon_sparse3", max_abs_err(k, p), ms, n,
+                         plain_ms, s, 3 * 32 * n,
+                         SPARSE3_MONTS * MULS_PER_MONT * n))
+    # the plain schedule at t = 3 on the same pairs (its largest launch:
+    # the tree path's whole first level)
+    st = torch.stack([torch.zeros_like(a_all), a_all, b_all], 1)
+    k = P.permute(st[:s].contiguous())
+    p, plain_ms = timed(lambda: P.plain_permute(st[:s]))
+    ms = cuda_ms(lambda: P.permute(st), reps=1)
+    rows.append(make_row("poseidon_plain_t3", max_abs_err(k, p), ms, n,
+                         plain_ms, s, 4 * 32 * n,
+                         poseidon_monts(3) * MULS_PER_MONT * n))
+    del st, a, b, k, p
+    torch.cuda.empty_cache()
+    for name in sorted(inputs.best, key=lambda x: (len(x), x)):
+        if (not name.startswith("poseidon_plain_t")
+                or name == "poseidon_plain_t3"):
+            continue
+        n, x = inputs.best[name]
+        t = x.shape[1]
+        s = min(n, (1 << 18) * 9 // (t * t))
+        k = P.permute(x[:s].contiguous())
+        p, plain_ms = timed(lambda: P.plain_permute(x[:s]))
+        ms = cuda_ms(lambda: P.permute(x), reps=3)
+        rows.append(make_row(name, max_abs_err(k, p), ms, n, plain_ms, s,
+                             (t + 1) * 32 * n,
+                             poseidon_monts(t) * MULS_PER_MONT * n))
+    # the chain: the whole CEX commitment against the per-block kernels,
+    # and its first 113 inputs (8 blocks, a narrower last one) against
+    # the plain version
+    _, x = inputs.best["poseidon_chain"]
+    b, n = x.shape[:2]
+    err = max_abs_err(P.chain_mont(x), P.hash_chain_mont(x))
+    head = x[:, :113].contiguous()
+    p, plain_ms = timed(lambda: P.plain_chain_mont(head))
+    err = max(err, max_abs_err(P.chain_mont(head), p))
+    ms = cuda_ms(lambda: P.chain_mont(x), reps=2)
+    rows.append(make_row("poseidon_chain", err, ms, b * n, plain_ms,
+                         b * 113, 32 * b * (n + 1),
+                         chain_monts(n) * MULS_PER_MONT * b))
+    return rows
+
+
 def main():
     try:
         import torch
@@ -616,12 +1013,34 @@ def main():
     phase_build()
     smi = phase_smi()
     phase_msm_oracle()
-    cs, pk, scs, launches, sizes = phase_main()
-    missing = [k for k in REPLACES if launches.get(k, 0) == 0]
-    if missing:
-        fail("kernels not launched on the main path: " + ", ".join(missing))
-    log(f"main path done at {time.time() - t_all:.1f} s")
-    rows = phase_kernels(cs, pk, scs, launches, sizes)
+    inputs = LargestInputs()
+    inputs.install()
+    launches = {}
+    cs, pk, scs, launches["prove"], sizes = phase_main()
+    need(launches["prove"], "prove")
+    log(f"prove path done at {time.time() - t_all:.1f} s")
+    rows = phase_kernels(cs, pk, scs, sizes)
+    del cs, pk, scs
+    torch.cuda.empty_cache()
+    log(f"prove-path kernel checks done at {time.time() - t_all:.1f} s")
+    tree, launches["tree"] = phase_tree()
+    need(launches["tree"], "tree")
+    log(f"tree path done at {time.time() - t_all:.1f} s")
+    launches["service"] = phase_service()
+    need(launches["service"], "service")
+    inputs.remove()
+    log(f"service path done at {time.time() - t_all:.1f} s")
+    rows += phase_poseidon_kernels(tree, inputs)
+    for r in rows:
+        by_path = {p_: n for p_, c in launches.items()
+                   if (n := c.get(r["name"], 0))}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
+    launched = {k for c in launches.values() for k, n in c.items() if n}
+    unchecked = launched - {r["name"] for r in rows}
+    if unchecked:
+        fail("kernels launched but not checked: " + ", ".join(
+            sorted(unchecked)))
     log(f"total {time.time() - t_all:.1f} s")
     log(smi)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,9 +1,10 @@
 """The port's batch circuit and witness pipeline at the tiny test tier
 (universe 4, tier 3:2, depth-8 tree, as tests/test_integration.py) against
 the JAX package: the compiled constraint system is identical array for
-array; the port's witness pipeline (account tree on the host Poseidon)
-agrees with the JAX package's host oracles (leaf hashes, Merkle proof
-check, CEX commitment) and satisfies the circuit it was built for.
+array; the port's witness pipeline (leaves and account tree on the plain
+versions of the Poseidon kernels) agrees with the JAX package's host
+oracles (leaf hashes, Merkle proof check, CEX commitment) and satisfies
+the circuit it was built for.
 
 The port's keygen -> prove -> verify of a BatchCreateUser circuit runs on
 the card (chip_smoke.py, at full size): on the CPU the plain EC versions
@@ -24,7 +25,7 @@ from zkpos_tpu_torch.utils import constants as TC
 torch.set_num_threads(1)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _sizes():
     saved = [(C, C.ASSET_COUNTS, C.TIER_COUNT, C.ACCOUNT_TREE_DEPTH)
              for C in (JC, TC)]
@@ -49,7 +50,9 @@ def _pkg(name):
     return mods
 
 
-def _port_witness():
+@pytest.fixture(scope="module")
+def port_witness(_sizes):
+    """The port's witness pipeline, run once for the module's tests."""
     m = _pkg("zkpos_tpu_torch")
     C, T, cm = m["utils.constants"], m["utils.types"], m["utils.commitments"]
     cex = chip_smoke.make_cex_assets(
@@ -61,7 +64,7 @@ def _port_witness():
         cm.calculate_asset_value_for_collateral)
     wcore = m["witness.core"]
     by_tier, capacity = wcore.prepare_accounts({3: accounts})
-    tree = wcore.build_account_tree(by_tier, capacity)
+    tree = wcore.build_account_tree(by_tier, capacity, device="cpu")
     wits = list(wcore.generate_batch_witnesses(tree, by_tier, cex))
     assert len(wits) == 1
     _, wit = wits[0]
@@ -81,13 +84,13 @@ def test_compile_tier_matches_jax():
     assert a.pool == b.pool
 
 
-def test_witness_pipeline_matches_jax_host_oracles():
+def test_witness_pipeline_matches_jax_host_oracles(port_witness):
     from zkpos_tpu.crypto.bn254 import fr_from_bytes, fr_to_bytes
     from zkpos_tpu.crypto.poseidon_ref import poseidon
     from zkpos_tpu.merkle.tree import verify_proof
     from zkpos_tpu.utils import commitments as jcm
     from zkpos_tpu.utils import types as jtypes
-    accounts, before, tree, wit = _port_witness()
+    accounts, before, tree, wit = port_witness
     root = tree.root()
     assert wit.account_tree_root == root
     for acc, op in zip(accounts, wit.create_user_ops):
@@ -110,11 +113,11 @@ def test_witness_pipeline_matches_jax_host_oracles():
         wit.min_account_index, wit.max_account_index])
 
 
-def test_port_witness_satisfies_circuit():
+def test_port_witness_satisfies_circuit(port_witness):
     m = _pkg("zkpos_tpu_torch")
     from zkpos_tpu_torch.circuit.cs import ConstraintSystem
     bcu = m["circuit.batch_create_user"]
-    _, _, _, wit = _port_witness()
+    _, _, _, wit = port_witness
     w = bcu.set_batch_create_user_circuit_witness(wit)
     cs = ConstraintSystem(solve=True)
     bcu.define(cs, w)

@@ -1,8 +1,12 @@
-"""CPU rehearsal of the port's device arithmetic: csrc/field.cuh and
-csrc/ec.cuh, the headers every CUDA kernel includes, compiled by g++ into
-a small harness (tests/torch_rehearsal.cpp) and checked against the bn254
-oracle -- Montgomery products in Fr, Fp and Fp2, and complete G1 / G2 adds
-with the identity on each side, P + P and P + (-P).  Skips without g++."""
+"""CPU rehearsal of the port's device arithmetic: csrc/field.cuh,
+csrc/ec.cuh and csrc/poseidon.cuh, the headers the CUDA kernels include,
+compiled by g++ into a small harness (tests/torch_rehearsal.cpp) and
+checked against the host oracles -- Montgomery products in Fr, Fp and
+Fp2, complete G1 / G2 adds with the identity on each side, P + P and
+P + (-P), and the Poseidon permutations (sparse and plain schedules, and
+the chaining rule of the warp-per-chain kernel) against
+crypto/poseidon_ref, with the constant tables the port's wrappers upload.
+Skips without g++."""
 import ctypes
 import os
 import shutil
@@ -12,6 +16,9 @@ import numpy as np
 import pytest
 
 from zkpos_tpu.crypto import bn254 as bn
+from zkpos_tpu.crypto.poseidon_ref import permutation, poseidon
+from zkpos_tpu_torch.ops import poseidon as tpos
+from zkpos_tpu_torch.ops import poseidon_sparse as tsparse
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "zkpos_tpu_torch", "csrc")
@@ -31,6 +38,9 @@ def harness(tmp_path_factory):
     L.rh_mont_mul.argtypes = [ctypes.c_int, V, V, V, ctypes.c_long]
     for fn in (L.rh_fp2_mul, L.rh_g1_add, L.rh_g2_add):
         fn.argtypes = [V, V, V, ctypes.c_long]
+    L.rh_poseidon_sparse3.argtypes = [V, V, V, V, ctypes.c_long]
+    L.rh_poseidon_plain.argtypes = [ctypes.c_int, V, V, V, V, ctypes.c_long]
+    L.rh_poseidon_chain.argtypes = [V, ctypes.c_int, V, V, V, V, V]
     return L
 
 
@@ -113,3 +123,52 @@ def test_complete_add(harness, curve):
     got = [_affine(curve, vals[na * i:na * (i + 1)])
            for i in range(len(pairs))]
     assert got == [add(x, y) for x, y in pairs]
+
+
+def _np(t):
+    return t.numpy().view(np.uint32)
+
+
+def _from_mont(rows):
+    rinv = pow(RM, -1, bn.R)
+    return [v * rinv % bn.R for v in _ints(rows)]
+
+
+def test_poseidon_sparse3(harness):
+    a = [0, bn.R - 1, 0, bn.R - 1] + _rand(12, bn.R, 21)
+    b = [0, 0, bn.R - 1, bn.R - 1] + _rand(12, bn.R, 22)
+    am = _limbs([v * RM % bn.R for v in a])
+    bm = _limbs([v * RM % bn.R for v in b])
+    out = np.zeros_like(am)
+    k = _np(tsparse.table("cpu"))
+    harness.rh_poseidon_sparse3(am.ctypes.data, bm.ctypes.data, k.ctypes.data,
+                                out.ctypes.data, len(a))
+    assert _from_mont(out) == [poseidon([x, y]) for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("t", [3, 6, 17])
+def test_poseidon_plain(harness, t):
+    n = 6
+    states = [_rand(t, bn.R, 30 + t + i) for i in range(n)]
+    states[0] = [0] * t
+    states[1] = [0] + [bn.R - 1] * (t - 1)
+    st = _limbs([v * RM % bn.R for s in states for v in s])
+    c, m = (_np(x) for x in tpos.tables(t, "cpu"))
+    out = np.zeros((n, 8), dtype=np.uint32)
+    assert harness.rh_poseidon_plain(t, st.ctypes.data, c.ctypes.data,
+                                     m.ctypes.data, out.ctypes.data, n) == 0
+    assert _from_mont(out) == [permutation(s)[1] for s in states]
+
+
+@pytest.mark.parametrize("n", [16, 17, 31, 46, 80])
+def test_poseidon_chain_rule(harness, n):
+    vals = _rand(n, bn.R, 100 + n)
+    vals[-1] = bn.R - 1
+    x = _limbs([v * RM % bn.R for v in vals])
+    c17, m17 = (_np(t) for t in tpos.tables(17, "cpu"))
+    ct, mt = (_np(t) for t in tpos.tables(tpos._tail_width(n), "cpu"))
+    out = np.zeros((1, 8), dtype=np.uint32)
+    harness.rh_poseidon_chain(x.ctypes.data, n, c17.ctypes.data,
+                              m17.ctypes.data, ct.ctypes.data,
+                              mt.ctypes.data, out.ctypes.data)
+    assert _from_mont(out) == [poseidon(vals)]

@@ -4,8 +4,24 @@
 // not a path of the port.
 #include "field.cuh"
 #include "ec.cuh"
+#include "poseidon.cuh"
 
 using namespace ff;
+
+namespace {
+
+template <int T>
+void plain_rows(const uint32_t* st, const uint32_t* C, const uint32_t* M,
+                uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    uint32_t x[T][8];
+    for (int j = 0; j < T; ++j) pos::copy8(x[j], st + 8 * (T * i + j));
+    pos::permute_plain<T>(x, C, M);
+    pos::copy8(out + 8 * i, x[pos::kOutputIndex]);
+  }
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -37,6 +53,62 @@ void rh_g2_add(const uint32_t* a, const uint32_t* b, uint32_t* out, long n) {
   for (long i = 0; i < n; ++i)
     store_point(out + 48 * i,
                 padd(load_point<Fp2>(a + 48 * i), load_point<Fp2>(b + 48 * i)));
+}
+
+// Poseidon(2) on the sparse schedule; K is the table of poseidon.cuh.
+void rh_poseidon_sparse3(const uint32_t* a, const uint32_t* b,
+                         const uint32_t* K, uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    uint32_t x[3][8];
+    pos::zero8(x[0]);
+    pos::copy8(x[1], a + 8 * i);
+    pos::copy8(x[2], b + 8 * i);
+    pos::permute_sparse3(x, K);
+    pos::copy8(out + 8 * i, x[pos::kOutputIndex]);
+  }
+}
+
+// n states of t lanes -> their digests (t = 3, 6 or 17)
+int rh_poseidon_plain(int t, const uint32_t* st, const uint32_t* C,
+                      const uint32_t* M, uint32_t* out, long n) {
+  switch (t) {
+    case 3: plain_rows<3>(st, C, M, out, n); return 0;
+    case 6: plain_rows<6>(st, C, M, out, n); return 0;
+    case 17: plain_rows<17>(st, C, M, out, n); return 0;
+    default: return 1;
+  }
+}
+
+// One chain of n inputs, run as the warp kernel of poseidon.cu runs it:
+// the same block schedule and the same per-lane round pieces, with the
+// lanes taken one after another and the exchange through `sh`.
+void rh_poseidon_chain(const uint32_t* in, int n, const uint32_t* C17,
+                       const uint32_t* M17, const uint32_t* Ct,
+                       const uint32_t* Mt, uint32_t* out) {
+  uint32_t x[pos::kMaxWidth][8], sh[pos::kMaxWidth][8], digest[8];
+  pos::zero8(digest);
+  for (int b = 0; b < pos::chain_blocks(n); ++b) {
+    int start, count, t;
+    pos::chain_block(n, b, &start, &count, &t);
+    const uint32_t* C = t == pos::kMaxWidth ? C17 : Ct;
+    const uint32_t* M = t == pos::kMaxWidth ? M17 : Mt;
+    const int rp = pos::partial_rounds(t);
+    const int first = b == 0 ? 1 : 2;
+    for (int lane = 0; lane < t; ++lane) {
+      pos::zero8(x[lane]);
+      if (b > 0 && lane == 1) pos::copy8(x[lane], digest);
+      if (lane >= first) pos::copy8(x[lane], in + 8 * (start + lane - first));
+    }
+    for (int r = 0; r < pos::kFullRounds + rp; ++r) {
+      for (int lane = 0; lane < t; ++lane)
+        pos::lane_pre(x[lane], lane, r, t, rp, C);
+      for (int lane = 0; lane < t; ++lane) pos::copy8(sh[lane], x[lane]);
+      for (int lane = 0; lane < t; ++lane)
+        pos::lane_mix(x[lane], lane, t, &sh[0][0], M);
+    }
+    pos::copy8(digest, x[pos::kOutputIndex]);
+  }
+  pos::copy8(out, digest);
 }
 
 }  // extern "C"

@@ -116,6 +116,9 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_g2_add": [V, V, V, LL, I, V],
                 "zk_seg_scan_local": [I, V, V, V, V, V, LL, I, V],
                 "zk_seg_scan_fixup": [I, V, V, V, LL, I, V],
+                "zk_poseidon_sparse3": [V, V, V, LL, LL, V, V],
+                "zk_poseidon_plain": [I, V, V, LL, V, V, V],
+                "zk_poseidon_chain": [V, V, LL, I, V, V, V, V, V],
             }
             for name, args in sigs.items():
                 fn = getattr(L, name)

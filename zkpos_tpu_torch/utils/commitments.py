@@ -1,7 +1,9 @@
 """Packing rules and commitment hashes — parity with reference src/utils/utils.go.
 
-These are the host-side implementations; wide hashes use the host Poseidon
-with the chaining rule of crypto/poseidon_ref.poseidon.  Packing layouts (utils.go:26-88, 188-221):
+These are the host-side implementations (wide hashes on the host Poseidon
+with the chaining rule of crypto/poseidon_ref.poseidon), except the CEX
+commitment, which runs as one chained hash on the device.  Packing
+layouts (utils.go:26-88, 188-221):
 
   * user assets: flatten 6 fields/asset, pack 3 uint64 per field element
     with weights 2^128 / 2^64 / 1;
@@ -141,12 +143,15 @@ def _pad_cex_assets(cex_assets: List[CexAssetInfo]) -> List[CexAssetInfo]:
     return padded
 
 
-def compute_cex_assets_commitment(cex_assets: List[CexAssetInfo]) -> bytes:
-    """utils.go:779-800 — pads to ASSET_COUNTS then hashes all elements."""
+def compute_cex_assets_commitment(cex_assets: List[CexAssetInfo],
+                                  device=None) -> bytes:
+    """utils.go:779-800 — pads to ASSET_COUNTS then hashes all elements,
+    as one chained hash on the device (ops/poseidon.hash_chain_fast)."""
+    from ..ops.poseidon import hash_chain_fast
     elements = []
     for asset in _pad_cex_assets(cex_assets):
         elements += cex_asset_elements(asset)
-    return fr_to_bytes(poseidon(elements))
+    return fr_to_bytes(hash_chain_fast(elements, device))
 
 
 def calculate_precomputed_value(ratios: List[TierRatio]) -> None:

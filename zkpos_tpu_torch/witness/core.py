@@ -1,10 +1,11 @@
 """Witness-generation core — parity with reference src/witness.
 
 Pure functions (no storage): account padding/index assignment
-(witness main.go:58-90), the account-tree build on the host Poseidon
-(main.go:130-199), and per-batch BatchCreateUserWitness construction with
-running CEX totals (witness.go:138-212, fillCreateUserOp :319-340).
-The service wrapper with DB persistence/resume lives in services/witness.
+(witness main.go:58-90), the device-built account tree over leaves hashed
+in batches on the device (main.go:130-199), and per-batch
+BatchCreateUserWitness construction with running CEX totals
+(witness.go:138-212, fillCreateUserOp :319-340).  The service wrapper with
+DB persistence/resume lives in services/witness.
 """
 
 from __future__ import annotations
@@ -12,13 +13,16 @@ from __future__ import annotations
 import hashlib
 from typing import Dict, Iterator, List, Tuple
 
-from ..crypto.bn254 import R as MOD, fr_from_bytes, fr_to_bytes
+import torch
+
+from ..crypto.bn254 import fr_from_bytes, fr_to_bytes
 from ..crypto.poseidon_ref import poseidon
 from ..merkle.tree import AccountTree
+from ..ops import poseidon as pos
 from ..utils import constants as C
-from ..utils.commitments import (account_info_to_hash, cex_asset_elements,
-                                 user_assets_elements)
+from ..utils.commitments import cex_asset_elements, user_assets_elements
 from ..utils.csv_ingest import padding_accounts
+from ..utils.device import resolve
 from ..utils.types import (AccountInfo, BatchCreateUserWitness, CexAssetInfo,
                            CreateUserOperation, TierRatio)
 
@@ -44,29 +48,37 @@ def prepare_accounts(accounts_by_tier: Dict[int, List[AccountInfo]],
     return out, global_index
 
 
-def account_leaves(accounts: List[AccountInfo]) -> List[int]:
-    """Leaf hashes for a tier's accounts (AccountInfoToHash per account,
-    reference main.go:163-192): the chained asset commitment, then the
-    5-input leaf hash."""
-    leaves = []
-    for a in accounts:
-        commitment = poseidon(user_assets_elements(a.assets))
-        leaves.append(poseidon([fr_from_bytes(a.account_id),
-                                a.total_equity % MOD, a.total_debt % MOD,
-                                a.total_collateral % MOD, commitment]))
-    return leaves
+def account_leaves(accounts: List[AccountInfo], device=None) -> torch.Tensor:
+    """Leaf hashes of one tier's accounts as (B, 8) Montgomery rows on the
+    device (AccountInfoToHash per account, reference main.go:163-192): one
+    batched chain hash for the asset commitments, then one 5-input hash
+    for the leaves."""
+    dev = resolve(device)
+    rows = [user_assets_elements(a.assets) for a in accounts]
+    n = len(rows[0])
+    if any(len(r) != n for r in rows):
+        raise ValueError("accounts of one tier must pad to one asset count")
+    x = pos.mont_tensor([v for r in rows for v in r], dev)
+    commitments = pos.hash_chain_mont(x.reshape(len(accounts), n, 8))
+    head = pos.mont_tensor([v for a in accounts for v in (
+        fr_from_bytes(a.account_id), a.total_equity, a.total_debt,
+        a.total_collateral)], dev).reshape(len(accounts), 4, 8)
+    return pos.hash_n_mont(torch.cat([head, commitments[:, None]], 1))
 
 
 def build_account_tree(accounts_by_tier: Dict[int, List[AccountInfo]],
-                       capacity: int,
-                       depth: int | None = None) -> AccountTree:
-    leaves: List[int] = [0] * capacity
+                       capacity: int, depth: int | None = None,
+                       device=None) -> AccountTree:
+    tree = AccountTree(depth=depth, capacity=capacity, device=device)
+    leaves = torch.zeros((capacity, 8), dtype=torch.int32,
+                         device=tree.device)
     for k in sorted(accounts_by_tier):
         accs = accounts_by_tier[k]
-        for acc, leaf in zip(accs, account_leaves(accs)):
-            leaves[acc.account_index] = leaf
-    tree = AccountTree(depth=depth, capacity=capacity)
-    tree.build_from_leaf_ints(leaves)
+        if accs:
+            idx = torch.tensor([a.account_index for a in accs],
+                               device=tree.device)
+            leaves[idx] = account_leaves(accs, tree.device)
+    tree.build_from_mont_leaves(leaves)
     return tree
 
 
@@ -88,12 +100,23 @@ def _copy_cex(cex: List[CexAssetInfo]) -> List[CexAssetInfo]:
     ) for a in cex]
 
 
-def _cex_commitment_bytes(cex: List[CexAssetInfo]) -> bytes:
+def _cex_commitment_bytes(cex: List[CexAssetInfo], device=None) -> bytes:
     elements = []
     for a in cex:
         elements += cex_asset_elements(a)
-    # chained hash over 20*AssetCounts elements (witness.go:158-176)
-    return fr_to_bytes(poseidon(elements))
+    # chained hash over 20*AssetCounts elements (witness.go:158-176), one
+    # launch: 2 commitments per batch
+    return fr_to_bytes(pos.hash_chain_fast(elements, device))
+
+
+def _accumulate(cex_assets: List[CexAssetInfo], acc: AccountInfo) -> None:
+    for asset in acc.assets:
+        cx = cex_assets[asset.index]
+        cx.total_equity += asset.equity
+        cx.total_debt += asset.debt
+        cx.loan_collateral += asset.loan
+        cx.margin_collateral += asset.margin
+        cx.portfolio_margin_collateral += asset.portfolio_margin
 
 
 def generate_batch_witnesses(tree: AccountTree,
@@ -106,41 +129,41 @@ def generate_batch_witnesses(tree: AccountTree,
     All proofs are against the FINAL tree root (witness.go:138,169-171).
     `cex_assets` is mutated (running totals), matching the reference."""
     tiers = tiers or C.get_tiers()
+    dev = tree.device
     root = tree.root()
     height = -1
+    # the CEX state a batch starts from is the one the batch before it
+    # ended with: its commitment is the previous after-commitment
+    last_after = None
     for k in sorted(accounts_by_tier):
         accs = accounts_by_tier[k]
         ops_per_batch = tiers[k]
         n_batches = len(accs) // ops_per_batch
         for b in range(n_batches):
             height += 1
-            replay_only = height <= start_height
-            before = _cex_commitment_bytes(cex_assets)
+            batch = accs[b * ops_per_batch:(b + 1) * ops_per_batch]
+            if height <= start_height:
+                # replay only: carry the running totals past this batch
+                for acc in batch:
+                    _accumulate(cex_assets, acc)
+                continue
             wit = BatchCreateUserWitness(
                 account_tree_root=root,
-                before_cex_assets_commitment=before,
+                before_cex_assets_commitment=(
+                    last_after or _cex_commitment_bytes(cex_assets, dev)),
                 before_cex_assets=_copy_cex(cex_assets))
-            for j in range(b * ops_per_batch, (b + 1) * ops_per_batch):
-                acc = accs[j]
-                for asset in acc.assets:
-                    cx = cex_assets[asset.index]
-                    cx.total_equity += asset.equity
-                    cx.total_debt += asset.debt
-                    cx.loan_collateral += asset.loan
-                    cx.margin_collateral += asset.margin
-                    cx.portfolio_margin_collateral += asset.portfolio_margin
-                if replay_only:
-                    continue
+            proofs = tree.get_proofs_batch([a.account_index for a in batch])
+            for acc, proof in zip(batch, proofs):
+                _accumulate(cex_assets, acc)
                 wit.create_user_ops.append(CreateUserOperation(
                     assets=list(acc.assets),
                     account_index=acc.account_index,
                     account_id_hash=acc.account_id,
-                    account_proof=tree.get_proof(acc.account_index)))
-            if replay_only:
-                continue
+                    account_proof=proof))
             wit.min_account_index = wit.create_user_ops[0].account_index
             wit.max_account_index = wit.create_user_ops[-1].account_index
-            wit.after_cex_assets_commitment = _cex_commitment_bytes(cex_assets)
+            wit.after_cex_assets_commitment = last_after = (
+                _cex_commitment_bytes(cex_assets, dev))
             wit.batch_commitment = fr_to_bytes(poseidon([
                 fr_from_bytes(wit.account_tree_root),
                 fr_from_bytes(wit.before_cex_assets_commitment),
