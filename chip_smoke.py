@@ -37,10 +37,20 @@ Phases, in order; any failure exits non-zero:
      hash;
   8. every Poseidon kernel held against its plain version, bit for bit,
      on a slice of the inputs of its largest launch on paths 4, 6 and 7,
-     and timed on the whole of them.
+     and timed on the whole of them;
+  9. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
+     probes in scripts/): instruction rates, the digit convolutions, the
+     Montgomery product's stages, the sparse Poseidon(2) ablations over
+     the tree path's first level, the seg-scan stages over streams of the
+     prove path's sizes and mean segment lengths (measured in phase 5),
+     and the weights-first product on the FP32 pipes and the TF32 tensor
+     cores beside torch.matmul; one JSON line per probe, every variant
+     held against its plain version (exactly, or within its stated
+     tolerance for the float probes).
 Launches are counted per path: every count is set to 0 just before a path
-and read just after it.  The last two lines are the kernel JSON line and
-the status line.
+and read just after it (on the probes path, around each probe's timed
+launches; its checks run after the reading).  The last two lines are the
+kernel JSON line and the status line.
 """
 
 import json
@@ -50,6 +60,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -107,6 +118,9 @@ PATH_KERNELS = {
     "service": ("poseidon_sparse3", "poseidon_plain_t6",
                 "poseidon_plain_t17", "poseidon_chain", "ff_mul"),
 }
+# the probes path's kernels (PATH_KERNELS["probes"], one per probe variant)
+# are filled in by main from the probes package; the path's time budget
+PROBES_PATH_LIMIT_S = 120
 
 
 def replaces(name):
@@ -162,21 +176,6 @@ def rand_fe(n, field, gen):
     x[:, 7] %= 0x30644E72
     x = torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
     return x.cuda()
-
-
-def point_pool(curve, k, gen_py):
-    """k^2 valid points on the card: k host points, then all pair sums by
-    the plain add (independent of the kernels under test)."""
-    import torch
-    from zkpos_tpu_torch.crypto import bn254 as bn
-    from zkpos_tpu_torch.ops import ec
-    g, mul = ((bn.G1_GEN, bn.g1_mul) if curve == "g1"
-              else (bn.G2_GEN, bn.g2_mul))
-    base = ec.from_affine([mul(g, gen_py.randrange(1, bn.R))
-                           for _ in range(k)], curve, "cuda")
-    i = torch.arange(k, device="cuda").repeat_interleave(k)
-    j = torch.arange(k, device="cuda").repeat(k)
-    return ec.plain_point_add(base[i].contiguous(), base[j].contiguous())
 
 
 def negate(pts):
@@ -424,26 +423,6 @@ def timed(fn):
     return out, s.elapsed_time(e)
 
 
-def scan_adds(heads, K):
-    """Adds the three-pass scan performs on this head pattern."""
-    import torch
-    n = heads.shape[0]
-    total = 0
-    h = heads.bool()
-    while True:
-        T = -(-n // K)
-        pad = T * K - n
-        hp = torch.cat([h, torch.ones(pad, dtype=torch.bool,
-                                      device=h.device)]).reshape(T, K)
-        total += int((~hp[:, 1:]).sum())                 # pass 1
-        if T == 1:
-            return total
-        before = torch.cumsum(hp.int(), dim=1) == 0
-        before[0] = False
-        total += int(before.sum())                        # fix-up
-        h, n = hp.any(dim=1), T
-
-
 def plain_scan_slices(pts, heads, out, slices, chunk):
     """The plain scan over each [a, b) of `slices` (a must be a head: a
     scan restarted at a head does not depend on what came before), run in
@@ -506,7 +485,8 @@ def make_row(name, err, ms, n, plain_ms, plain_n, byts, muls):
             "plain_ms": round(plain_ms, 4), "plain_n": plain_n,
             "bound_ms": round(max(t_bytes, t_ops), 4),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "bytes_ms": round(t_bytes, 4),
+            "ops_ms": round(t_ops, 4)}
 
 
 def phase_kernels(cs, pk, scs, sizes):
@@ -519,8 +499,8 @@ def phase_kernels(cs, pk, scs, sizes):
     from zkpos_tpu_torch.crypto import bn254 as bn
     from zkpos_tpu_torch.ops import ec, field as F, msm_device as md
     from zkpos_tpu_torch.groth16 import ntt_device as nd, qap_device as qd
+    from zkpos_tpu_torch.probes.probe_segscan import point_pool, stage_adds
     gen = torch.Generator().manual_seed(3)
-    rpy = random.Random(3)
     rows = []
 
     def row(*args):
@@ -593,7 +573,7 @@ def phase_kernels(cs, pk, scs, sizes):
     for curve, k_pool in (("g1", 32), ("g2", 16)):
         name = f"{curve}_add"
         n = sizes[name]
-        pool_pts = point_pool(curve, k_pool, rpy)
+        pool_pts = point_pool(curve, k_pool, 3, "cuda")
         ia = torch.randint(0, pool_pts.shape[0], (n,), generator=gen).cuda()
         ib = torch.randint(0, pool_pts.shape[0], (n,), generator=gen).cuda()
         a, b = pool_pts[ia].contiguous(), pool_pts[ib].contiguous()
@@ -626,6 +606,7 @@ def phase_kernels(cs, pk, scs, sizes):
     bases = pk.dev_bases
     h = qd.compute_h_device(cs, zt, d)
     acc = {}
+    means = {}
     for name, base, plan, span, chunk, timed_here in (
             ("seg_scan_g1", bases["a"], md.ScalarPlan(zt, device="cuda"),
              None, 1 << 21, True),
@@ -651,17 +632,19 @@ def phase_kernels(cs, pk, scs, sizes):
         a["plain_ms"] += plain_ms
         a["plain_n"] += plain_n
         if timed_here:
+            means[name[-2:]] = N / int(heads.sum())
             a["ms"] = cuda_ms(lambda: ec.seg_scan(pts, heads), reps=2)
             a["n"] = N
             a["bytes"] = 2 * na * 32 * N + N
             a["muls"] = (MONTS_PER_ADD[na] * MULS_PER_MONT
-                         * scan_adds(heads, ec.SCAN_K))
+                         * stage_adds("full", heads))
         del pts, heads
         torch.cuda.empty_cache()
     for name, a in acc.items():
         row(name, a["err"], a["ms"], a["n"], a["plain_ms"], a["plain_n"],
             a["bytes"], a["muls"])
-    return rows
+    log(json.dumps({"scan_segment_mean": means}))
+    return rows, means
 
 
 # --- the tree and witness-service paths, and the Poseidon kernels ------------
@@ -994,6 +977,75 @@ def phase_poseidon_kernels(tree, inputs):
     return rows
 
 
+# --- the probes path ----------------------------------------------------------
+
+ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "max_rel_err", "tol", "ms", "n", "plain_ms", "plain_n",
+            "bound_ms", "bound_by", "library_ms")
+
+
+def probe_row(r):
+    """A probe variant's entry of the kernels line; fails if it disagrees
+    with its plain version: exactly for the integer probes, above the
+    stated relative tolerance for the float ones."""
+    tol = r.get("tol")
+    log(f"kernel {r['name']}: max_abs_err={r['max_abs_err']} "
+        + (f"max_rel_err={r['max_rel_err']:.3e} (tol {tol}) "
+           if tol is not None else "")
+        + f"ms={r['ms']:.3f} (n={r['n']}) plain_ms={r['plain_ms']:.3f} "
+        f"(n={r['plain_n']}) bound_ms={r['bound_ms']:.3f}")
+    if (r["max_abs_err"] != 0 if tol is None else not
+            r["max_rel_err"] <= tol):
+        fail(f"{r['name']} disagrees with its plain version")
+    for k in ("full_equals_main_kernel", "cios_equals_reduce_of_product"):
+        if r.get(k) is False:
+            fail(f"{r['name']}: {k} is false")
+    return {k: r[k] for k in ROW_KEYS if k in r}
+
+
+def phase_probes(card, means):
+    """Every probe on the card, the counts set to 0 just before each probe's
+    timed launches and read just after (probes.run_probe; its checks come
+    after the reading).  Returns (its kernel rows, its launches, the
+    measured rate of the field core's wide multiply-add in 32-bit
+    multiplies a second)."""
+    import torch
+    from zkpos_tpu_torch import probes
+    t_all = time.time()
+    rows, raw, launches = [], [], Counter()
+    for name, mod in probes.PROBES:
+        t0 = time.time()
+        kw = {"means": means} if name == "probe_segscan" else {}
+        out, counted = probes.run_probe(mod, "cuda", log=log, **kw)
+        launches.update(counted)
+        torch.cuda.empty_cache()
+        log(json.dumps({"probe": name, "card": card,
+                        "seconds": round(time.time() - t0, 3),
+                        "rows": out}))
+        rows += [probe_row(r) for r in out]
+        raw += out
+    # two 32-bit multiplies a step
+    wide = next(2 * r["steps_per_s"] for r in raw
+                if r["name"] == "rate_u64_widemad")
+    seconds = time.time() - t_all
+    log(json.dumps({"probes_path": {"seconds": round(seconds, 3),
+                                    "limit_s": PROBES_PATH_LIMIT_S,
+                                    "launches": dict(launches)}}))
+    return rows, dict(launches), wide
+
+
+def rebound(rows, wide):
+    """The bound of every kernel row that counts 32-bit multiplies, again
+    at the rate this run measured for the field core's wide multiply-add
+    (two multiplies a step) in place of the data sheet's INT32 rate."""
+    log(json.dumps({"wide_mad_muls_per_s": round(wide),
+                    "of_int32_mul_per_s": round(wide / INT32_MUL_PER_S, 4)}))
+    for r in rows:
+        if "ops_ms" in r:
+            r["bound_ms_at_measured_rate"] = round(
+                max(r["bytes_ms"], r["ops_ms"] * INT32_MUL_PER_S / wide), 4)
+
+
 def main():
     try:
         import torch
@@ -1019,7 +1071,7 @@ def main():
     cs, pk, scs, launches["prove"], sizes = phase_main()
     need(launches["prove"], "prove")
     log(f"prove path done at {time.time() - t_all:.1f} s")
-    rows = phase_kernels(cs, pk, scs, sizes)
+    rows, means = phase_kernels(cs, pk, scs, sizes)
     del cs, pk, scs
     torch.cuda.empty_cache()
     log(f"prove-path kernel checks done at {time.time() - t_all:.1f} s")
@@ -1031,6 +1083,15 @@ def main():
     inputs.remove()
     log(f"service path done at {time.time() - t_all:.1f} s")
     rows += phase_poseidon_kernels(tree, inputs)
+    del tree
+    torch.cuda.empty_cache()
+    from zkpos_tpu_torch.probes import kernel_names
+    PATH_KERNELS["probes"] = kernel_names()
+    probe_rows, launches["probes"], wide = phase_probes(smi, means)
+    need(launches["probes"], "probes")
+    rebound(rows, wide)
+    rows += probe_rows
+    log(f"probes path done at {time.time() - t_all:.1f} s")
     for r in rows:
         by_path = {p_: n for p_, c in launches.items()
                    if (n := c.get(r["name"], 0))}

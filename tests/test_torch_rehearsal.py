@@ -5,8 +5,11 @@ checked against the host oracles -- Montgomery products in Fr, Fp and
 Fp2, complete G1 / G2 adds with the identity on each side, P + P and
 P + (-P), and the Poseidon permutations (sparse and plain schedules, and
 the chaining rule of the warp-per-chain kernel) against
-crypto/poseidon_ref, with the constant tables the port's wrappers upload.
-Skips without g++."""
+crypto/poseidon_ref, with the constant tables the port's wrappers upload;
+and the probes' device functions (csrc/probes.cuh: instruction-rate
+bodies, the digit convolutions, the product's stages, the Poseidon
+ablations and the scan's passes under both combines) against their plain
+versions in zkpos_tpu_torch/probes.  Skips without g++."""
 import ctypes
 import os
 import shutil
@@ -14,11 +17,17 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 from zkpos_tpu.crypto import bn254 as bn
 from zkpos_tpu.crypto.poseidon_ref import permutation, poseidon
 from zkpos_tpu_torch.ops import poseidon as tpos
 from zkpos_tpu_torch.ops import poseidon_sparse as tsparse
+from zkpos_tpu_torch.probes import debug_product as pprod
+from zkpos_tpu_torch.probes import probe_conv as pconv
+from zkpos_tpu_torch.probes import probe_kernel_split as psplit
+from zkpos_tpu_torch.probes import probe_segscan as pscan
+from zkpos_tpu_torch.probes import rates as prates
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "zkpos_tpu_torch", "csrc")
@@ -41,6 +50,12 @@ def harness(tmp_path_factory):
     L.rh_poseidon_sparse3.argtypes = [V, V, V, V, ctypes.c_long]
     L.rh_poseidon_plain.argtypes = [ctypes.c_int, V, V, V, V, ctypes.c_long]
     L.rh_poseidon_chain.argtypes = [V, ctypes.c_int, V, V, V, V, V]
+    I, LG = ctypes.c_int, ctypes.c_long
+    L.rh_probe_rate.argtypes = [I, V, V, LG, I]
+    L.rh_probe_conv.argtypes = [I, V, V, V, LG]
+    L.rh_probe_product.argtypes = [I, V, V, V, LG]
+    L.rh_probe_split.argtypes = [I, V, V, V, V, LG]
+    L.rh_probe_scan.argtypes = [I, I, I, V, V, V, LG, I]
     return L
 
 
@@ -172,3 +187,71 @@ def test_poseidon_chain_rule(harness, n):
                               m17.ctypes.data, ct.ctypes.data,
                               mt.ctypes.data, out.ctypes.data)
     assert _from_mont(out) == [poseidon(vals)]
+
+
+# --- the probes (csrc/probes.cuh) against their plain versions --------------
+
+@pytest.mark.parametrize("body", range(6))
+def test_probe_rate_bodies(harness, body):
+    x, b = prates.inputs(body, 40, 200 + body, "cpu")
+    want = prates.plain_rate(body, x, b, 2)
+    got = x.clone()
+    assert harness.rh_probe_rate(body, got.data_ptr(), b.data_ptr(), 40,
+                                 2) == 0
+    if x.dtype.is_floating_point:
+        # g++ may contract x*b + b into an FMA where PyTorch rounds twice
+        torch.testing.assert_close(got, want, rtol=prates.F32_TOL, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("form", pconv.FORMS)
+def test_probe_conv_forms(harness, form):
+    a, b = pconv.inputs(12, 3, "cpu")
+    out = torch.empty_like(a)
+    harness.rh_probe_conv(pconv.FORMS.index(form), a.data_ptr(),
+                          b.data_ptr(), out.data_ptr(), 12)
+    torch.testing.assert_close(out, pconv.plain_rounds(form, a, b),
+                               rtol=pconv.TOL, atol=0)
+
+
+def test_probe_product_stages(harness):
+    gen = torch.Generator().manual_seed(4)
+    a, b = (pprod.random_fr(24, gen, "cpu") for _ in range(2))
+    t = torch.empty((24, 16), dtype=torch.int32)
+    harness.rh_probe_product(0, a.data_ptr(), b.data_ptr(), t.data_ptr(), 24)
+    assert torch.equal(t, pprod.plain_product(a, b))
+    r, m = (torch.empty((24, 8), dtype=torch.int32) for _ in range(2))
+    harness.rh_probe_product(1, t.data_ptr(), None, r.data_ptr(), 24)
+    assert torch.equal(r, pprod.plain_reduce(t))
+    harness.rh_probe_product(2, a.data_ptr(), b.data_ptr(), m.data_ptr(), 24)
+    assert torch.equal(m, pprod.plain_cios(a, b))
+    assert torch.equal(m, r)
+
+
+@pytest.mark.parametrize("mode", psplit.MODES)
+def test_probe_split_variants(harness, mode):
+    lvl = psplit.random_level(8, 31, "cpu")
+    a, b = lvl[0::2].contiguous(), lvl[1::2].contiguous()
+    out = torch.empty_like(a)
+    k = tsparse.table("cpu")
+    assert harness.rh_probe_split(psplit.MODES.index(mode), a.data_ptr(),
+                                  b.data_ptr(), k.data_ptr(), out.data_ptr(),
+                                  4) == 0
+    assert torch.equal(out, psplit.plain_split(mode, a, b))
+    if mode == "full":
+        assert torch.equal(out, tsparse.plain_hash2_mont_sparse(a, b))
+
+
+@pytest.mark.parametrize("curve,stage", [("g1", "structure"),
+                                         ("g1", "local"), ("g1", "full"),
+                                         ("g2", "structure"), ("g2", "full")])
+def test_probe_scan_passes(harness, curve, stage):
+    n = 300 if curve == "g1" else 140      # two levels of K = 16 blocks
+    pts, heads = pscan.stream(curve, n, 6.0, 41, "cpu")
+    heads[17:80] = 0                       # a segment over four blocks
+    out = torch.empty_like(pts)
+    harness.rh_probe_scan(pts.shape[1], int(stage == "structure"),
+                          int(stage != "local"), pts.data_ptr(),
+                          heads.data_ptr(), out.data_ptr(), n, pscan.K)
+    assert torch.equal(out, pscan.plain_stage(stage, pts, heads)[0])

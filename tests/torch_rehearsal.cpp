@@ -5,6 +5,9 @@
 #include "field.cuh"
 #include "ec.cuh"
 #include "poseidon.cuh"
+#include "probes.cuh"
+
+#include <vector>
 
 using namespace ff;
 
@@ -19,6 +22,51 @@ void plain_rows(const uint32_t* st, const uint32_t* C, const uint32_t* M,
     pos::permute_plain<T>(x, C, M);
     pos::copy8(out + 8 * i, x[pos::kOutputIndex]);
   }
+}
+
+template <class B>
+void rate_rows(void* x, const void* b, long n, int iters) {
+  typename B::T* v = (typename B::T*)x;
+  const typename B::U* w = (const typename B::U*)b;
+  for (long i = 0; i < n; ++i) v[i] = probe::chain<B>(v[i], w[i], iters);
+}
+
+template <class P, bool STACK>
+void split_rows(const uint32_t* a, const uint32_t* b, const uint32_t* K,
+                uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i)
+    probe::sparse3_hash<P, STACK>(out + 8 * i, a + 8 * i, b + 8 * i, K, 0);
+}
+
+// The three passes of the probe kernels run serially: every thread's block
+// through scan_block, the aggregates scanned the same way, the fix-ups.
+template <class E, class C>
+void scan3(const uint32_t* in, const uint8_t* heads, uint32_t* out, long n,
+           int K, bool recurse) {
+  const int w = Layout<E>::NA * 8;
+  const long T = (n + K - 1) / K;
+  std::vector<uint32_t> agg(T * w);
+  std::vector<uint8_t> flag(T);
+  for (long t = 0; t < T; ++t) {
+    long end = (t + 1) * K < n ? (t + 1) * K : n;
+    store_point(agg.data() + w * t,
+                probe::scan_block<E, C>(in, heads, out, t * K, end, &flag[t]));
+  }
+  if (!recurse || T == 1) return;
+  scan3<E, C>(agg.data(), flag.data(), agg.data(), T, K, true);
+  for (long t = 1; t < T; ++t) {
+    long end = (t + 1) * K < n ? (t + 1) * K : n;
+    probe::fixup_block<E, C>(out, heads,
+                             load_point<E>(agg.data() + w * (t - 1)), t * K,
+                             end);
+  }
+}
+
+template <class E>
+void scan_stage(int comb, int recurse, const uint32_t* in,
+                const uint8_t* heads, uint32_t* out, long n, int K) {
+  if (comb) scan3<E, probe::CombWrap>(in, heads, out, n, K, recurse);
+  else scan3<E, probe::CombPadd>(in, heads, out, n, K, recurse);
 }
 
 }  // namespace
@@ -109,6 +157,70 @@ void rh_poseidon_chain(const uint32_t* in, int n, const uint32_t* C17,
     pos::copy8(digest, x[pos::kOutputIndex]);
   }
   pos::copy8(out, digest);
+}
+
+// --- the probes' device functions (probes.cuh) -------------------------------
+
+// body as zk_probe_rate; x is updated in place
+int rh_probe_rate(int body, void* x, const void* b, long n, int iters) {
+  switch (body) {
+    case 0: rate_rows<probe::U32Chain>(x, b, n, iters); return 0;
+    case 1: rate_rows<probe::U32MulMask>(x, b, n, iters); return 0;
+    case 2: rate_rows<probe::U32MulAdd>(x, b, n, iters); return 0;
+    case 3: rate_rows<probe::F32Fma>(x, b, n, iters); return 0;
+    case 4: rate_rows<probe::F32Floor>(x, b, n, iters); return 0;
+    case 5: rate_rows<probe::U64WideMad>(x, b, n, iters); return 0;
+    default: return 1;
+  }
+}
+
+// form as zk_probe_conv; a, b, out: (34, n) digit planes
+void rh_probe_conv(int form, const float* a, const float* b, float* out,
+                   long n) {
+  for (long c = 0; c < n; ++c) {
+    float x[probe::kDigits], bb[probe::kDigits];
+    for (int i = 0; i < probe::kDigits; ++i) {
+      x[i] = a[i * n + c];
+      bb[i] = b[i * n + c];
+    }
+    if (form == 0) probe::conv_rounds<0>(x, bb);
+    else if (form == 1) probe::conv_rounds<1>(x, bb);
+    else probe::conv_rounds<2>(x, bb);
+    for (int i = 0; i < probe::kDigits; ++i) out[i * n + c] = x[i];
+  }
+}
+
+// stage as zk_probe_product (Fr)
+void rh_probe_product(int stage, const uint32_t* a, const uint32_t* b,
+                      uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    if (stage == 0) probe::prod8(out + 16 * i, a + 8 * i, b + 8 * i);
+    else if (stage == 1) probe::redc8<Fr>(out + 8 * i, a + 16 * i);
+    else mul<Fr>(out + 8 * i, a + 8 * i, b + 8 * i);
+  }
+}
+
+// mode as zk_probe_split; a, b: n contiguous rows
+int rh_probe_split(int mode, const uint32_t* a, const uint32_t* b,
+                   const uint32_t* K, uint32_t* out, long n) {
+  using namespace probe;
+  switch (mode) {
+    case 0: split_rows<PFull, false>(a, b, K, out, n); return 0;
+    case 1: split_rows<PNoProduct, false>(a, b, K, out, n); return 0;
+    case 2: split_rows<PNoReduce, false>(a, b, K, out, n); return 0;
+    case 3: split_rows<PNoFinalSub, false>(a, b, K, out, n); return 0;
+    case 4: split_rows<PNoConst, false>(a, b, K, out, n); return 0;
+    case 5: split_rows<PFull, true>(a, b, K, out, n); return 0;
+    default: return 1;
+  }
+}
+
+// na = 3 | 6; comb: 0 the complete add, 1 the wrapping add; recurse = 0
+// stops after the local pass
+void rh_probe_scan(int na, int comb, int recurse, const uint32_t* in,
+                   const uint8_t* heads, uint32_t* out, long n, int K) {
+  if (na == 3) scan_stage<Fp1>(comb, recurse, in, heads, out, n, K);
+  else scan_stage<Fp2>(comb, recurse, in, heads, out, n, K);
 }
 
 }  // extern "C"

@@ -1,0 +1,483 @@
+// Device functions of the measurement probes (zkpos_tpu_torch/probes/),
+// the counterparts of the TPU probes in scripts/.  Each piece computes
+// what its TPU probe computed; csrc/probes.cu wraps them in kernels, and
+// g++ compiles this header too, which is how tests/test_torch_rehearsal.py
+// holds every piece against its plain PyTorch version on the CPU.
+//
+//   * instruction-rate bodies: one dependent step x <- f(x, b), run in
+//     chains of kChain steps per load (scripts/micro_probe2.py:70,
+//     scripts/micro_probe3.py:69-102), plus the field core's 64-bit wide
+//     multiply-add (field.cuh:127);
+//   * the 34-digit f32 convolution in three forms with the probe's fold
+//     (scripts/probe_conv.py:27-71);
+//   * the Montgomery product split into its stages: 8 x 8-limb schoolbook
+//     product, reduction of 16 limbs to 8, and the CIOS product without
+//     its final subtraction (scripts/debug_f32p.py:38,73);
+//   * the sparse Poseidon(2) of poseidon.cuh as one template over an
+//     ablation policy (scripts/probe_kernel_split.py:28);
+//   * the segmented scan's serial block pass and fix-up over a combine
+//     policy: the real complete add of ec.cuh or a limb-wise wrapping add
+//     (scripts/probe_segscan.py:19,101).
+//
+// Nothing here is on a main path: the kernels of seg_scan.cu and
+// poseidon.cu are left as they are, and the ablations are copies of their
+// schedules over policies, held to the originals by the `full` variants.
+#pragma once
+
+#include <math.h>
+
+#include "ec.cuh"
+#include "field.cuh"
+#include "poseidon.cuh"
+
+namespace probe {
+
+using ff::Fr;
+
+// CH of the TPU probes: dependent steps per load
+const int kChain = 64;
+
+// --- instruction-rate bodies ---------------------------------------------
+//
+// T is the chained state, U the per-element operand.  The comment names
+// the instructions each step should compile to on sm_90a; the probe logs
+// the counts cuobjdump finds.
+
+// (x*b + b) & 0xFFFF: IMAD + LOP3 (micro_probe2.py:74)
+struct U32Chain {
+  typedef uint32_t T;
+  typedef uint32_t U;
+  static FF_HD T step(T x, U b) { return (x * b + b) & 0xFFFFu; }
+};
+
+// (x*b) & 0xFFFF: IMAD + LOP3 (micro_probe3.py:72)
+struct U32MulMask {
+  typedef uint32_t T;
+  typedef uint32_t U;
+  static FF_HD T step(T x, U b) { return (x * b) & 0xFFFFu; }
+};
+
+// x*b + b, wrapping: one IMAD (micro_probe3.py:82)
+struct U32MulAdd {
+  typedef uint32_t T;
+  typedef uint32_t U;
+  static FF_HD T step(T x, U b) { return x * b + b; }
+};
+
+// x*b + b: one FFMA, by contraction (micro_probe3.py:95)
+struct F32Fma {
+  typedef float T;
+  typedef float U;
+  static FF_HD T step(T x, U b) { return x * b + b; }
+};
+
+// f = floor(x / 256); x = (x - 256 f) + b: FMUL, FRND.FLOOR, FFMA, FADD
+// (micro_probe3.py:105-107)
+struct F32Floor {
+  typedef float T;
+  typedef float U;
+  static FF_HD T step(T x, U b) {
+    float f = floorf(x * (1.0f / 256.0f));
+    return (x - 256.0f * f) + b;
+  }
+};
+
+// The field core's step, s = a*b + t + c with a 64-bit result whose low
+// word is the next limb and high word the next carry (field.cuh:127): the
+// state s holds (carry, limb); IMAD.WIDE.U32 and the 64-bit adds.
+struct U64WideMad {
+  typedef uint64_t T;
+  typedef uint32_t U;
+  static FF_HD T step(T s, U b) {
+    return (uint64_t)(uint32_t)s * b + b + (s >> 32);
+  }
+};
+
+// iters x kChain dependent steps of body B from x; the outer loop is kept
+// rolled, so that one pass of the compiled loop is kChain steps (the rate
+// probe reads its instructions per step from that loop's SASS)
+#if defined(__CUDACC__)
+#define PROBE_ROLLED _Pragma("unroll 1")
+#else
+#define PROBE_ROLLED
+#endif
+template <class B>
+FF_HD typename B::T chain(typename B::T x, typename B::U b, int iters) {
+  PROBE_ROLLED
+  for (int it = 0; it < iters; ++it) {
+    FF_UNROLL
+    for (int k = 0; k < kChain; ++k) x = B::step(x, b);
+  }
+  return x;
+}
+
+// --- the 34-digit f32 convolution (probe_conv.py) --------------------------
+
+const int kDigits = 34;
+const int kCoeffs = 2 * kDigits - 1;
+const int kConvReps = 8;      // REPS: dependent convolutions per load
+
+// c = a * b, 34 x 34 products summed in i order (conv_padloop, :27)
+FF_HD void conv_padloop(float* c, const float* a, const float* b) {
+  FF_UNROLL
+  for (int k = 0; k < kCoeffs; ++k) c[k] = 0.0f;
+  FF_UNROLL
+  for (int i = 0; i < kDigits; ++i) {
+    FF_UNROLL
+    for (int j = 0; j < kDigits; ++j) c[i + j] += a[i] * b[j];
+  }
+}
+
+// the same products summed by residue class of i mod 8 (conv_grouped, :35):
+// s_r = sum_q shift_8q(a[8q + r] * b), then c = sum_r shift_r(s_r)
+FF_HD void conv_grouped(float* c, const float* a, const float* b) {
+  FF_UNROLL
+  for (int k = 0; k < kCoeffs; ++k) c[k] = 0.0f;
+  FF_UNROLL
+  for (int r = 0; r < 8; ++r) {
+    float s[kCoeffs];
+    FF_UNROLL
+    for (int k = 0; k < kCoeffs; ++k) s[k] = 0.0f;
+    FF_UNROLL
+    for (int q = 0; 8 * q + r < kDigits; ++q) {
+      FF_UNROLL
+      for (int j = 0; j < kDigits; ++j) s[8 * q + j] += a[8 * q + r] * b[j];
+    }
+    FF_UNROLL
+    for (int k = 0; k + r < kCoeffs; ++k) c[k + r] += s[k];
+  }
+}
+
+// c = a * a from the products with i <= j, the off-diagonal ones doubled
+// through 2a (conv_triangle, :51)
+FF_HD void conv_triangle(float* c, const float* a) {
+  FF_UNROLL
+  for (int k = 0; k < kCoeffs; ++k) c[k] = 0.0f;
+  FF_UNROLL
+  for (int i = 0; i < kDigits; ++i) {
+    c[2 * i] += a[i] * a[i];
+    FF_UNROLL
+    for (int j = i + 1; j < kDigits; ++j) c[i + j] += a[i] * (a[j] + a[j]);
+  }
+}
+
+// the probe's fold back to 34 digits, so that the rounds depend on each
+// other: x = c[:34] * 1e-7 + pad(c[34:], 1) * 1e-7 + b (probe_conv.py:71)
+FF_HD void conv_fold(float* x, const float* c, const float* b) {
+  FF_UNROLL
+  for (int i = 0; i < kDigits; ++i) {
+    float hi = i + kDigits < kCoeffs ? c[i + kDigits] : 0.0f;
+    x[i] = c[i] * 1e-7f + hi * 1e-7f + b[i];
+  }
+}
+
+// form: 0 padloop, 1 grouped, 2 triangle (x * x; b enters in the fold)
+template <int FORM>
+FF_HD void conv_rounds(float* x, const float* b) {
+  float c[kCoeffs];
+  for (int r = 0; r < kConvReps; ++r) {
+    if (FORM == 0) conv_padloop(c, x, b);
+    else if (FORM == 1) conv_grouped(c, x, b);
+    else conv_triangle(c, x);
+    conv_fold(x, c, b);
+  }
+}
+
+// --- the Montgomery product in stages (R = 2^256) ---------------------------
+
+// t = a * b, 16 limbs, operand scanning (the counterpart of k_conv)
+FF_HD void prod8(uint32_t* t, const uint32_t* a, const uint32_t* b) {
+  FF_UNROLL
+  for (int k = 0; k < 16; ++k) t[k] = 0;
+  FF_UNROLL
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+    FF_UNROLL
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)a[j] * b[i] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    t[i + 8] = (uint32_t)c;
+  }
+}
+
+// r = t / R mod p for t < p R, fully reduced: one m per limb, each row's
+// carry kept in `ext` for the column above it (the counterpart of k_red's
+// reduction half).  t + m p < 2 p R, so one subtraction reduces it.
+template <class F>
+FF_HD void redc8(uint32_t* r, const uint32_t* t_in) {
+  uint32_t t[16];
+  FF_UNROLL
+  for (int k = 0; k < 16; ++k) t[k] = t_in[k];
+  uint32_t ext = 0;
+  FF_UNROLL
+  for (int i = 0; i < 8; ++i) {
+    uint32_t m = t[i] * F::n0();
+    uint64_t c = 0;
+    FF_UNROLL
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)m * F::limb(j) + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[i + 8] + c + ext;
+    t[i + 8] = (uint32_t)s;
+    ext = (uint32_t)(s >> 32);
+  }
+  if (ff::geq_mod<F>(t + 8, ext)) ff::sub_mod_raw<F>(t + 8);
+  FF_UNROLL
+  for (int k = 0; k < 8; ++k) r[k] = t[8 + k];
+}
+
+// ff::mul's CIOS loop without its final conditional subtraction: the low
+// 256 bits of (a b + m p) / R, below 2p when a, b < 2p (a lazy bound)
+template <class F>
+FF_HD void mul_lazy(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t t[10];
+  FF_UNROLL
+  for (int i = 0; i < 10; ++i) t[i] = 0;
+  FF_UNROLL
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+    FF_UNROLL
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[8] + c;
+    t[8] = (uint32_t)s;
+    t[9] = (uint32_t)(s >> 32);
+    uint32_t m = t[0] * F::n0();
+    s = (uint64_t)m * F::limb(0) + t[0];
+    c = s >> 32;
+    FF_UNROLL
+    for (int j = 1; j < 8; ++j) {
+      s = (uint64_t)m * F::limb(j) + t[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[8] + c;
+    t[7] = (uint32_t)s;
+    t[8] = t[9] + (uint32_t)(s >> 32);
+  }
+  FF_UNROLL
+  for (int i = 0; i < 8; ++i) r[i] = t[i];
+}
+
+// --- the sparse Poseidon(2) over an ablation policy ---------------------------
+//
+// A policy gives the product (mul) and the read of a table entry (ld).
+// Each variant keeps a data dependence on the inputs, so that only the
+// work it names is removed.
+
+// full: poseidon.cuh's own product and constant reads
+struct PFull {
+  FF_HD void init(const uint32_t*) {}
+  FF_HD void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) const {
+    ff::mul<Fr>(r, a, b);
+  }
+  FF_HD void ld(uint32_t* r, const uint32_t* p) const { pos::ldc(r, p); }
+};
+
+// noproduct (TPU noconv): a product becomes one limb-wise multiply, the
+// top limb cut to 28 bits so that the value stays below r
+struct PNoProduct : PFull {
+  FF_HD void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) const {
+    FF_UNROLL
+    for (int i = 0; i < 8; ++i) r[i] = a[i] * b[i];
+    r[7] &= 0x0FFFFFFFu;
+  }
+};
+
+// noreduce (TPU nomm): the schoolbook product kept, the reduction skipped:
+// the high half a b / 2^256, below r for a, b < r
+struct PNoReduce : PFull {
+  FF_HD void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) const {
+    uint32_t t[16];
+    prod8(t, a, b);
+    FF_UNROLL
+    for (int i = 0; i < 8; ++i) r[i] = t[8 + i];
+  }
+};
+
+// nofinalsub (TPU noglue): the CIOS product without its final subtraction
+struct PNoFinalSub : PFull {
+  FF_HD void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) const {
+    mul_lazy<Fr>(r, a, b);
+  }
+};
+
+// noconst: every table read replaced by a value computed from the entry's
+// index e, limb i = (8 e + i + 1) * kNoConstMul mod 2^32 (the top limb cut
+// to 28 bits): no load is issued.  The values differ by entry, as the
+// table's do, so the compiler can merge no product that the full schedule
+// makes; they fold into immediates where the index is known at compile
+// time and cost an add a limb where it is not (the partial rounds' loop).
+const uint32_t kNoConstMul = 0x9E3779B1u;
+struct PNoConst : PFull {
+  const uint32_t* base;
+  FF_HD void init(const uint32_t* K) { base = K; }
+  FF_HD void ld(uint32_t* r, const uint32_t* p) const {
+    uint32_t w = (uint32_t)(p - base);          // 8 e
+    FF_UNROLL
+    for (int i = 0; i < 8; ++i) r[i] = (w + i + 1) * kNoConstMul;
+    r[7] &= 0x0FFFFFFFu;
+  }
+};
+
+// The schedule of pos::permute_sparse3 over a policy.  STACK sends every
+// lane index through `z` (0 at run time, unknown to the compiler), which
+// forces the state into a local array as k_plain's is (poseidon.cuh:115).
+template <class P, bool STACK>
+struct Sparse3 {
+  const P& pol;
+  int z;
+
+  FF_HD uint32_t* lane(uint32_t (*x)[8], int j) const {
+    return x[STACK ? (j ^ z) : j];
+  }
+  FF_HD void sbox(uint32_t* x) const {
+    uint32_t x2[8], x4[8];
+    pol.mul(x2, x, x);
+    pol.mul(x4, x2, x2);
+    pol.mul(x, x4, x);
+  }
+  FF_HD void add_c(uint32_t* x, const uint32_t* c) const {
+    uint32_t k[8];
+    pol.ld(k, c);
+    ff::add<Fr>(x, x, k);
+  }
+  FF_HD void fma_c(uint32_t* acc, const uint32_t* c, const uint32_t* x) const {
+    uint32_t k[8], p[8];
+    pol.ld(k, c);
+    pol.mul(p, k, x);
+    ff::add<Fr>(acc, acc, p);
+  }
+  FF_HD void mix_dense3(uint32_t (*x)[8], const uint32_t* M) const {
+    uint32_t nx[3][8];
+    for (int i = 0; i < 3; ++i) {
+      uint32_t acc[8];
+      pos::zero8(acc);
+      for (int j = 0; j < 3; ++j) fma_c(acc, M + 8 * (i * 3 + j), lane(x, j));
+      pos::copy8(nx[i], acc);
+    }
+    for (int i = 0; i < 3; ++i) pos::copy8(lane(x, i), nx[i]);
+  }
+  FF_HD void full_round3(uint32_t (*x)[8], const uint32_t* K,
+                         const uint32_t* c_next) const {
+    for (int i = 0; i < 3; ++i) sbox(lane(x, i));
+    mix_dense3(x, K + 8 * pos::sparse3::kMds);
+    if (c_next)
+      for (int i = 0; i < 3; ++i) add_c(lane(x, i), c_next + 8 * i);
+  }
+  FF_HD void permute(uint32_t (*x)[8], const uint32_t* K) const {
+    using namespace pos::sparse3;
+    const int half = pos::kHalfFull;
+    for (int i = 0; i < T; ++i) add_c(lane(x, i), K + 8 * (kCInit + i));
+    for (int r = 0; r < half; ++r)
+      full_round3(x, K, r < half - 1 ? K + 8 * (kCFull + T * r) : 0);
+    add_c(lane(x, 0), K + 8 * kD);
+    for (int i = 0; i < RP; ++i) {
+      sbox(lane(x, 0));
+      if (i < RP - 1) {
+        const uint32_t* row = K + 8 * (kSparse + kRow * i);
+        uint32_t x0[8];
+        pos::zero8(x0);
+        for (int j = 0; j < T; ++j) fma_c(x0, row + 8 * j, lane(x, j));
+        for (int j = 1; j < T; ++j)
+          fma_c(lane(x, j), row + 8 * (T - 1 + j), lane(x, 0));
+        pos::copy8(lane(x, 0), x0);
+        add_c(lane(x, 0), K + 8 * (kD + i + 1));
+      } else {
+        mix_dense3(x, K + 8 * kDense);
+        for (int j = 0; j < T; ++j) add_c(lane(x, j), K + 8 * (kCResume + j));
+      }
+    }
+    for (int r = 0; r < half; ++r)
+      full_round3(x, K, r < half - 1 ? K + 8 * (kCFull2 + T * r) : 0);
+  }
+};
+
+// one hash of the variant: out = lane 1 of the permuted (0, a, b)
+template <class P, bool STACK>
+FF_HD void sparse3_hash(uint32_t* out, const uint32_t* a, const uint32_t* b,
+                        const uint32_t* K, int z) {
+  P pol;
+  pol.init(K);
+  Sparse3<P, STACK> s{pol, z};
+  uint32_t x[3][8];
+  pos::zero8(x[0]);
+  pos::copy8(x[1], a);
+  pos::copy8(x[2], b);
+  s.permute(x, K);
+  pos::copy8(out, s.lane(x, pos::kOutputIndex));
+}
+
+// --- segmented-scan pieces over a combine policy ----------------------------
+
+// the real complete add (ec.cuh)
+struct CombPadd {
+  template <class E>
+  static FF_HD ff::Point<E> op(const ff::Point<E>& a, const ff::Point<E>& b) {
+    return ff::padd(a, b);
+  }
+};
+
+// a limb-wise wrapping add of every coordinate: the scan's structure with
+// almost no arithmetic (TPU stages 1-4 combined with `x + part`)
+struct CombWrap {
+  static FF_HD ff::Fp1 wrap(const ff::Fp1& a, const ff::Fp1& b) {
+    ff::Fp1 r;
+    FF_UNROLL
+    for (int i = 0; i < 8; ++i) r.v[i] = a.v[i] + b.v[i];
+    return r;
+  }
+  static FF_HD ff::Fp2 wrap(const ff::Fp2& a, const ff::Fp2& b) {
+    return ff::Fp2{wrap(a.c0, b.c0), wrap(a.c1, b.c1)};
+  }
+  template <class E>
+  static FF_HD ff::Point<E> op(const ff::Point<E>& a, const ff::Point<E>& b) {
+    return ff::Point<E>{wrap(a.x, b.x), wrap(a.y, b.y), wrap(a.z, b.z)};
+  }
+};
+
+// seg_scan.cu's pass 1 for the block [start, end) of a stream of points of
+// w words: out holds its serial scan; returns the block's aggregate and
+// whether the block held a head
+template <class E, class C>
+FF_HD ff::Point<E> scan_block(const uint32_t* in, const uint8_t* heads,
+                              uint32_t* out, long long start, long long end,
+                              uint8_t* flag) {
+  const int w = ff::Layout<E>::NA * 8;
+  ff::Point<E> acc = ff::load_point<E>(in + w * start);
+  uint8_t f = heads[start];
+  ff::store_point(out + w * start, acc);
+  for (long long i = start + 1; i < end; ++i) {
+    ff::Point<E> p = ff::load_point<E>(in + w * i);
+    if (heads[i]) {
+      acc = p;
+      f = 1;
+    } else {
+      acc = C::template op<E>(acc, p);
+    }
+    ff::store_point(out + w * i, acc);
+  }
+  *flag = f;
+  return acc;
+}
+
+// seg_scan.cu's fix-up of one block: the carry of the blocks before it
+// added to its elements before its first head
+template <class E, class C>
+FF_HD void fixup_block(uint32_t* out, const uint8_t* heads,
+                       const ff::Point<E>& carry, long long start,
+                       long long end) {
+  const int w = ff::Layout<E>::NA * 8;
+  for (long long i = start; i < end && !heads[i]; ++i)
+    ff::store_point(out + w * i,
+                    C::template op<E>(carry, ff::load_point<E>(out + w * i)));
+}
+
+}  // namespace probe

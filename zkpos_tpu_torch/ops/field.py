@@ -139,17 +139,29 @@ def _cond_sub16(r: torch.Tensor, field: int) -> torch.Tensor:
     return torch.where(s[..., 16:17] == 1, s[..., :16], r)
 
 
-def _mul16(a: torch.Tensor, b: torch.Tensor, field: int) -> torch.Tensor:
-    """Montgomery product a*b/R mod p of canonical 16-bit limb rows.  The
-    column sums run as float64 matmuls: every partial sum is an integer
-    below 2^37, so they are exact."""
-    skew, ntoep, ptoep, _, _ = _tables(field, str(a.device))
+def _prod16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a*b as 32 canonical 16-bit limbs, for canonical (N, 16) limb rows.
+    The column sums run as float64 matmuls: every partial sum is an
+    integer below 2^37, so they are exact."""
+    skew = _tables(FR, str(a.device))[0]
     n = a.shape[0]
     prod = (a.unsqueeze(-1) * b.unsqueeze(-2)).reshape(n, 256)
-    t = _norm((prod.double() @ skew).long())          # a*b, 32 limbs
+    return _norm((prod.double() @ skew).long())
+
+
+def _redc_raw16(t: torch.Tensor, field: int) -> torch.Tensor:
+    """(t + m*p) / R mod 2^256 for 32 canonical limbs t, m = -t/p mod R:
+    the Montgomery reduction before its conditional subtraction (below 2p
+    for t < p*R)."""
+    _, ntoep, ptoep, _, _ = _tables(field, str(t.device))
     m = _norm((t[:, :16].double() @ ntoep).long())    # t*(-1/p) mod R
     u = _norm(t + (m.double() @ ptoep).long())        # t + m*p = 0 mod R
-    return _cond_sub16(u[:, 16:], field)
+    return u[:, 16:]
+
+
+def _mul16(a: torch.Tensor, b: torch.Tensor, field: int) -> torch.Tensor:
+    """Montgomery product a*b/R mod p of canonical 16-bit limb rows."""
+    return _cond_sub16(_redc_raw16(_prod16(a, b), field), field)
 
 
 def _flat2(a: torch.Tensor, b: torch.Tensor):

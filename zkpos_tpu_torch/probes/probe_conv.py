@@ -1,0 +1,151 @@
+"""The 34-digit f32 convolution in three forms.
+
+Counterpart of scripts/probe_conv.py:64-85 (``mk(f).kern``, the TPU's
+Pallas kernel over ``conv_padloop`` :27, ``conv_grouped`` :35 and
+``conv_triangle`` :51).  Each form computes (34, T) x (34, T) -> (67, T)
+on base-256 digits held in f32, REPS = 8 rounds a load with the TPU
+probe's fold back to 34 digits (``x = c[:34] 1e-7 + pad(c[34:], 1) 1e-7 +
+b``) so that the rounds depend on each other.  ``padloop`` and ``grouped``
+are the full 34 x 34 products summed in two orders; ``triangle`` is the
+squaring from the products with i <= j.
+
+On this card ``k_conv`` (csrc/probes.cu) runs one thread per column with
+its 34 digits, its 34 operand digits and its 67 coefficients in registers;
+the planes are (34, n) with a column's digit i at i * n + c, so a warp
+reads 32 neighbouring words per digit.  Bound: FP32 FMAs at 128 per SM per
+clock (1,156 a product, 595 a squaring, plus the fold's 68); the TPU chose
+digits in f32 because its f32 FMA outran its u32 multiply, and this probe
+measures the same trade here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import field as F
+from ..utils import build
+from ..utils.device import resolve
+from . import common as C
+
+ND, NC = 34, 67
+REPS = 8
+N = 1 << 22           # columns
+CHECK_N = 1 << 16     # columns the plain version checks
+FORMS = ("padloop", "grouped", "triangle")
+REPLACES = "scripts/probe_conv.py:65"
+# FMAs of one convolution (products) in each form
+FMAS = {"padloop": ND * ND, "grouped": ND * ND, "triangle": ND * (ND + 1) // 2}
+# After the first round the digits are no longer integers, so rounding
+# enters: nvcc contracts each product into an FMA where PyTorch rounds the
+# product first.  The fold scales the coefficients by 1e-7 against b's
+# digits (0 to 255), so the difference stays near one rounding of x.
+TOL = 1e-5
+
+
+def _pad(c: torch.Tensor, top: int, rows: int) -> torch.Tensor:
+    out = c.new_zeros((rows, c.shape[1]))
+    out[top:top + c.shape[0]] = c
+    return out
+
+
+def plain_conv(form: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One convolution in the form's summation order; (34, T) -> (67, T).
+    The triangle squares a (b is not read)."""
+    if form == "padloop":
+        acc = None
+        for i in range(ND):
+            p = _pad(a[i:i + 1] * b, i, NC)
+            acc = p if acc is None else acc + p
+        return acc
+    if form == "grouped":
+        acc = None
+        for r in range(8):
+            s = None
+            for q in range(5):
+                i = 8 * q + r
+                if i >= ND:
+                    break
+                p = _pad(a[i:i + 1] * b, 8 * q, NC)
+                s = p if s is None else s + p
+            t = _pad(s[:NC - r], r, NC)
+            acc = t if acc is None else acc + t
+        return acc
+    a2 = a + a
+    acc = None
+    for i in range(ND):
+        row = a[i:i + 1] if i == ND - 1 else torch.cat([a[i:i + 1],
+                                                        a2[i + 1:]])
+        p = _pad(a[i:i + 1] * row, 2 * i, NC)
+        acc = p if acc is None else acc + p
+    return acc
+
+
+def plain_rounds(form: str, a: torch.Tensor, b: torch.Tensor):
+    """REPS rounds of the form and the fold: the function of k_conv."""
+    x = a
+    for _ in range(REPS):
+        c = plain_conv(form, x, b)
+        x = c[:ND] * 1e-7 + _pad(c[ND:], 0, ND) * 1e-7 + b
+    return x
+
+
+def conv_rounds(form: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """k_conv on the card (counted as ``conv_<form>``), plain_rounds on the
+    CPU.  a, b: (34, n) float32."""
+    for t in (a, b):
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != ND
+                or not t.is_contiguous()):
+            raise ValueError("conv_rounds takes contiguous (34, n) float32")
+    if a.shape != b.shape:
+        raise ValueError("conv_rounds: a and b differ in shape")
+    if C.check_device(a, b) == "cpu":
+        return plain_rounds(form, a, b)
+    out = torch.empty_like(a)
+    n = a.shape[1]
+    build.check(build.cuda_lib().zk_probe_conv(
+        FORMS.index(form), build.ptr(out), build.ptr(a), build.ptr(b), n,
+        build.stream_ptr(a)), f"conv_{form}")
+    F.count_launch(f"conv_{form}", n)
+    return out
+
+
+def inputs(n: int, seed: int, device):
+    """Digits below 256, as the TPU probe made them."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.integers(0, 256, (2, ND, n)).astype(np.float32)
+    return torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+
+
+def run(device=None, log=print):
+    """Times every form at N columns and returns ``check``, which holds each
+    against its plain version on the first CHECK_N columns and returns the
+    rows."""
+    dev = resolve(device)
+    a, b = inputs(N, 0, dev)
+    times = {form: C.time_ms(lambda: conv_rounds(form, a, b), dev, reps=5)
+             for form in FORMS}
+
+    def check():
+        ac, bc = a[:, :CHECK_N].contiguous(), b[:, :CHECK_N].contiguous()
+        rows = []
+        for form in FORMS:
+            ms = times[form]
+            k = conv_rounds(form, ac, bc)
+            p, plain_ms = C.timed(lambda: plain_rounds(form, ac, bc), dev)
+            fmas = N * REPS * (FMAS[form] + 2 * ND)
+            r = C.row(f"conv_{form}", REPLACES, N, ms, plain_ms, CHECK_N,
+                      3 * ND * 4 * N, fmas / C.FP32_FMA_PER_S,
+                      C.max_abs_err(k, p), rel_err=C.max_rel_err(k, p),
+                      tol=TOL, mconv_per_s=round(N * REPS / ms / 1e3, 3),
+                      gfma_per_s=round(fmas / ms / 1e6, 3),
+                      share_of_fp32_peak=round(fmas / ms / 1e-3
+                                               / C.FP32_FMA_PER_S, 4),
+                      registers=C.kernel_resources(
+                          f"k_convILi{FORMS.index(form)}E"),
+                      device=dev.type)
+            log(f"probe conv_{form}: {r['mconv_per_s']} M conv/s, "
+                f"{r['gfma_per_s']} G FMA/s, rel err {r['max_rel_err']:.2e}")
+            rows.append(r)
+        return rows
+    return check

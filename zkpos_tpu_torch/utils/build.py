@@ -119,6 +119,14 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_poseidon_sparse3": [V, V, V, LL, LL, V, V],
                 "zk_poseidon_plain": [I, V, V, LL, V, V, V],
                 "zk_poseidon_chain": [V, V, LL, I, V, V, V, V, V],
+                "zk_probe_rate": [I, V, V, V, LL, I, V],
+                "zk_probe_conv": [I, V, V, V, LL, V],
+                "zk_probe_product": [I, V, V, V, LL, V],
+                "zk_probe_split": [I, V, V, V, LL, LL, V, I, V],
+                "zk_probe_scan_copy": [I, V, V, V, V, LL, I, V],
+                "zk_probe_scan_local": [I, I, V, V, V, V, V, LL, I, V],
+                "zk_probe_scan_fixup": [I, I, V, V, V, LL, I, V],
+                "zk_probe_dot": [I, I, V, V, V, LL, V],
             }
             for name, args in sigs.items():
                 fn = getattr(L, name)
@@ -126,6 +134,13 @@ def cuda_lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _cuda_lib = L
     return _cuda_lib
+
+
+def cuda_objects_dir() -> str:
+    """The directory of the built kernel library and its per-source
+    objects (``<source>.cu.o``), building them first if needed."""
+    with _lock:
+        return os.path.dirname(_build_cuda())
 
 
 def check(rc: int, what: str) -> None:
