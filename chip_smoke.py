@@ -37,7 +37,10 @@ Phases, in order; any failure exits non-zero:
      hash;
   8. every Poseidon kernel held against its plain version, bit for bit,
      on a slice of the inputs of its largest launch on paths 4, 6 and 7,
-     and timed on the whole of them;
+     and timed on the whole of them: the tree's kernel at each of its
+     hashes-a-thread counts, and the chain kernel on the service path's
+     batched launch (every chain against the per-block kernel) and on one
+     chain, with the products on a chain's critical path;
   9. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
      probes in scripts/): instruction rates, the digit convolutions, the
      Montgomery product's stages, the sparse Poseidon(2) ablations over
@@ -73,9 +76,6 @@ INT32_MUL_PER_S = 132 * 64 * 1.98e9
 # a*b products + 1 for m + 8 wide m*p products), a wide product = lo + hi
 MULS_PER_MONT = 8 * (16 + 1 + 16)
 MONTS_PER_ADD = {3: 14, 6: 42}      # G1: 12 + two 3b; G2: 3 x (12 + two 3b)
-# Montgomery products of one sparse-schedule Poseidon(2): 8 full rounds x
-# (9 S-box + 9 mix) + 57 S-boxes x 3 + 56 sparse rows x 5 + 9 dense
-SPARSE3_MONTS = 604
 # accounts of the witness-service path (2^16; not below 2^14)
 SERVICE_ACCOUNTS = 1 << 16
 
@@ -655,16 +655,41 @@ def poseidon_monts(t):
     return R_FULL * (3 * t + t * t) + partial_rounds(t) * (3 + t * t)
 
 
-def chain_monts(n):
-    """Montgomery products of one chained hash of n inputs."""
+def sparse_monts(t):
+    """Montgomery products of one sparse-schedule permutation of width t:
+    8 full rounds of t S-boxes and t^2 mix products, R_P lane-0 S-boxes,
+    R_P - 1 sparse rows of 2t - 1 products and one dense t x t mix."""
+    from zkpos_tpu_torch.crypto.poseidon_params import R_FULL, partial_rounds
+    rp = partial_rounds(t)
+    return R_FULL * (3 * t + t * t) + 3 * rp + (rp - 1) * (2 * t - 1) + t * t
+
+
+def sparse_critical(t):
+    """Montgomery products in a row on one lane of the chain kernel's warp
+    permutation of width t: a full round's S-box and the lane's share of
+    the mix, three a sparse partial round, and the last partial round's
+    S-box and mix share."""
+    from zkpos_tpu_torch.crypto.poseidon_params import R_FULL, partial_rounds
+    share = (t * t + 31) // 32
+    return R_FULL * (3 + share) + 3 * (partial_rounds(t) - 1) + 3 + share
+
+
+def chain_widths(n):
+    """The widths of the permutations of one chained hash of n inputs."""
     if n <= 16:
-        return poseidon_monts(n + 1)
-    total, pos = poseidon_monts(17), 16
+        return [n + 1]
+    widths, pos = [17], 16
     while pos < n:
         k = min(15, n - pos)
-        total += poseidon_monts(k + 2)
+        widths.append(k + 2)
         pos += k
-    return total
+    return widths
+
+
+def chain_monts(n):
+    """Montgomery products of one chained hash of n inputs on the sparse
+    schedule (the schedule the chain kernel runs)."""
+    return sum(sparse_monts(t) for t in chain_widths(n))
 
 
 class LargestInputs:
@@ -672,12 +697,15 @@ class LargestInputs:
     chain Poseidon kernel while installed, by wrapping ops.poseidon's
     permute and chain_mont (the wrappers count their launches as ever).
     Inputs of more than `cap` states are not kept: the one such launch, the
-    tree path's plain-schedule check, is rebuilt from the tree."""
+    tree path's plain-schedule check, is rebuilt from the tree.  The shape
+    of every chain launch is recorded in `chain_launches`."""
 
     def __init__(self, cap=1 << 20):
         self.cap = cap
         self.best = {}
         self.orig = None
+        # (chains, inputs a chain) of every chain launch, in order
+        self.chain_launches = []
 
     def _keep(self, name, n, x):
         if n <= self.cap and n > self.best.get(name, (0, None))[0]:
@@ -696,6 +724,7 @@ class LargestInputs:
         def keep_chain(inputs):
             self._keep("poseidon_chain", inputs.shape[0] * inputs.shape[1],
                        inputs)
+            self.chain_launches.append(tuple(inputs.shape[:2]))
             return chain_mont(inputs)
         P.permute, P.chain_mont = keep_permute, keep_chain
 
@@ -931,12 +960,16 @@ def phase_poseidon_kernels(tree, inputs):
     n = a_all.shape[0]
     s = 1 << 18
     a, b = a_all[:s].contiguous(), b_all[:s].contiguous()
-    k = S.hash2_mont_sparse(a, b)
     p, plain_ms = timed(lambda: S.plain_hash2_mont_sparse(a, b))
+    # exact on the slice and on its odd head (a block whose last threads
+    # run past n), timed on the whole level
+    err = max(max_abs_err(S.hash2_mont_sparse(a, b), p),
+              max_abs_err(S.hash2_mont_sparse(a[:4097], b[:4097]), p[:4097]))
     ms = cuda_ms(lambda: S.hash2_mont_sparse(a_all, b_all), reps=2)
-    rows.append(make_row("poseidon_sparse3", max_abs_err(k, p), ms, n,
-                         plain_ms, s, 3 * 32 * n,
-                         SPARSE3_MONTS * MULS_PER_MONT * n))
+    r = make_row("poseidon_sparse3", err, ms, n, plain_ms, s, 3 * 32 * n,
+                 sparse_monts(3) * MULS_PER_MONT * n)
+    r["per_thread"] = 1          # k_sparse3: one hash a thread
+    rows.append(r)
     # the plain schedule at t = 3 on the same pairs (its largest launch:
     # the tree path's whole first level)
     st = torch.stack([torch.zeros_like(a_all), a_all, b_all], 1)
@@ -961,9 +994,10 @@ def phase_poseidon_kernels(tree, inputs):
         rows.append(make_row(name, max_abs_err(k, p), ms, n, plain_ms, s,
                              (t + 1) * 32 * n,
                              poseidon_monts(t) * MULS_PER_MONT * n))
-    # the chain: the whole CEX commitment against the per-block kernels,
-    # and its first 113 inputs (8 blocks, a narrower last one) against
-    # the plain version
+    # the chain at its largest launch (the service path's batched CEX
+    # commitments): every chain against the per-block plain-schedule
+    # kernel, the first 113 inputs of every chain (8 blocks, a narrower
+    # last one) against the plain version; timed there and at one chain
     _, x = inputs.best["poseidon_chain"]
     b, n = x.shape[:2]
     err = max_abs_err(P.chain_mont(x), P.hash_chain_mont(x))
@@ -971,9 +1005,22 @@ def phase_poseidon_kernels(tree, inputs):
     p, plain_ms = timed(lambda: P.plain_chain_mont(head))
     err = max(err, max_abs_err(P.chain_mont(head), p))
     ms = cuda_ms(lambda: P.chain_mont(x), reps=2)
-    rows.append(make_row("poseidon_chain", err, ms, b * n, plain_ms,
-                         b * 113, 32 * b * (n + 1),
-                         chain_monts(n) * MULS_PER_MONT * b))
+    one = x[:1].contiguous()
+    ms_one = cuda_ms(lambda: P.chain_mont(one), reps=2)
+    # products on one chain's critical path: counted from the schedule
+    # (sparse_critical), not measured; the time a product is the measured
+    # one-chain time over that count
+    crit = sum(sparse_critical(t) for t in chain_widths(n))
+    r = make_row("poseidon_chain", err, ms, b * n, plain_ms, b * 113,
+                 32 * b * (n + 1), chain_monts(n) * MULS_PER_MONT * b)
+    r.update({"chains": b, "ms_one_chain": round(ms_one, 4),
+              "critical_path": {
+                  "monts": crit, "monts_from": "schedule count",
+                  "ns_per_mont": round(ms_one * 1e6 / crit, 2)}})
+    log(f"  poseidon_chain: {b} chains of {n} inputs in {ms:.3f} ms, one "
+        f"chain {ms_one:.3f} ms; {crit} products on a chain's critical "
+        f"path by the schedule's count, {ms_one * 1e6 / crit:.1f} ns each")
+    rows.append(r)
     return rows
 
 
@@ -1070,6 +1117,9 @@ def main():
     launches = {}
     cs, pk, scs, launches["prove"], sizes = phase_main()
     need(launches["prove"], "prove")
+    log(json.dumps({"prove_chain_launches": len(inputs.chain_launches),
+                    "chains_per_launch": [c for c, _ in
+                                          inputs.chain_launches]}))
     log(f"prove path done at {time.time() - t_all:.1f} s")
     rows, means = phase_kernels(cs, pk, scs, sizes)
     del cs, pk, scs
@@ -1078,8 +1128,13 @@ def main():
     tree, launches["tree"] = phase_tree()
     need(launches["tree"], "tree")
     log(f"tree path done at {time.time() - t_all:.1f} s")
+    k0 = len(inputs.chain_launches)
     launches["service"] = phase_service()
     need(launches["service"], "service")
+    shapes = inputs.chain_launches[k0:]
+    log(json.dumps({"service_chain_launches": len(shapes),
+                    "chains_per_launch": [c for c, _ in shapes],
+                    "inputs_per_chain": sorted({n for _, n in shapes})}))
     inputs.remove()
     log(f"service path done at {time.time() - t_all:.1f} s")
     rows += phase_poseidon_kernels(tree, inputs)
@@ -1091,6 +1146,15 @@ def main():
     need(launches["probes"], "probes")
     rebound(rows, wide)
     rows += probe_rows
+    # the chain's time a critical-path product beside one product's latency
+    # on a lone warp (probes/latency.py)
+    from zkpos_tpu_torch.probes import latency
+    cp = next(r for r in rows if r["name"] == "poseidon_chain")[
+        "critical_path"]
+    lat_ms = next(r["ms"] for r in rows if r["name"] == "latency_mont")
+    cp["latency_probe_ns"] = round(lat_ms * 1e6 / latency.STEPS, 2)
+    cp["latency_share"] = round(cp["latency_probe_ns"] / cp["ns_per_mont"], 4)
+    log(json.dumps({"chain_critical_path": cp}))
     log(f"probes path done at {time.time() - t_all:.1f} s")
     for r in rows:
         by_path = {p_: n for p_, c in launches.items()

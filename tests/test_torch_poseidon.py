@@ -4,9 +4,12 @@ against the JAX package, with exact equality of canonical digests:
 * the sparse-MDS schedule against zkpos_tpu.ops.poseidon_f32_pallas
   .hash2_mont_f32p (its Pallas kernel _perm2_kernel, in interpret mode on
   the CPU) and against crypto/poseidon_opt.permutation_opt;
+* the sparse tables of width 3, 11 and 17 (the chain kernel's schedule)
+  against crypto/poseidon_ref.permutation on random states;
 * the plain schedule at t = 6, batch hashing, and the t = 17 chain (the
-  per-block one of hash_chain_mont and the one-launch one of chain_mont)
-  against crypto/poseidon_ref.
+  per-block one of hash_chain_mont on the plain schedule and the
+  one-launch one of chain_mont on the sparse one) against
+  crypto/poseidon_ref.
 
 The plain schedule at t = 3 is held against zkpos_tpu.ops.poseidon
 .hash2_mont in tests/test_torch_tree.py, beside the JAX tree that compiles
@@ -53,6 +56,14 @@ def test_sparse_schedule_matches_f32_pallas_kernel():
     want = fd.digits_to_ints(fd.from_mont(hash2_mont_f32p(da, db)))
     assert got == want
     assert got == [jopt.permutation_opt([0, x, y])[1] for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("t", [3, 11, 17])
+def test_sparse_tables_match_permutation(t):
+    states = [[0] * t, _rand(t, 60 + t)]
+    x = tpos.mont_tensor([v for s in states for v in s], "cpu")
+    got = _digests(tsparse.plain_permute_sparse(x.reshape(2, t, 8)))
+    assert got == [permutation(s)[1] for s in states]
 
 
 def test_plain_schedule_t6_matches_oracle():

@@ -46,6 +46,7 @@ from zkpos_tpu_torch.ops import ec
 from zkpos_tpu_torch.ops import field as F
 from zkpos_tpu_torch import probes
 from zkpos_tpu_torch.probes import debug_product as pprod
+from zkpos_tpu_torch.probes import latency as platency
 from zkpos_tpu_torch.probes import probe_conv as pconv
 from zkpos_tpu_torch.probes import probe_dot as pdot
 from zkpos_tpu_torch.probes import probe_kernel_split as psplit
@@ -183,6 +184,18 @@ def test_product_stages_match_f32p_stages():
         assert _value(red)[j] * (1 << 272) % bn.R == x * y % bn.R
         assert redc[j] * RM % bn.R == x * y % bn.R
     assert redc == F.tensor_to_ints(pprod.plain_cios(a, b))
+
+
+@pytest.mark.parametrize("steps", [0, 1, 37])
+def test_mont_chain_matches_ints(steps):
+    """The latency probe's plain version: steps Montgomery products by b,
+    a b^steps / R^steps mod r."""
+    gen = torch.Generator().manual_seed(7)
+    a, b = (platency.random_fr(5, gen, "cpu") for _ in range(2))
+    rinv = pow(RM, -1, bn.R)
+    want = [x * pow(y * rinv, steps, bn.R) % bn.R for x, y in
+            zip(F.tensor_to_ints(a), F.tensor_to_ints(b))]
+    assert F.tensor_to_ints(platency.plain_mont_chain(a, b, steps)) == want
 
 
 def test_full_split_matches_poseidon_ref():
@@ -324,6 +337,7 @@ def test_dot_tolerance_holds_the_product(kind, route, fault):
 CHEAP = {"rates": {"N": 64, "ITERS": 1, "CHECK_ITERS": 1},
          "probe_conv": {"N": 64, "CHECK_N": 32},
          "debug_product": {"N": 64, "CHECK_N": 32},
+         "latency": {"STEPS": 64},
          "probe_dot": {"N": 128}}
 
 

@@ -3,9 +3,11 @@ csrc/ec.cuh and csrc/poseidon.cuh, the headers the CUDA kernels include,
 compiled by g++ into a small harness (tests/torch_rehearsal.cpp) and
 checked against the host oracles -- Montgomery products in Fr, Fp and
 Fp2, complete G1 / G2 adds with the identity on each side, P + P and
-P + (-P), and the Poseidon permutations (sparse and plain schedules, and
-the chaining rule of the warp-per-chain kernel) against
-crypto/poseidon_ref, with the constant tables the port's wrappers upload;
+P + (-P), and the Poseidon permutations (the tree's sparse schedule, the
+plain schedule, and the warp schedule of the chain kernel -- one
+permutation of width t and whole chains -- run on 32 host threads standing
+for the lanes) against crypto/poseidon_ref, with the constant tables the
+port's wrappers upload;
 and the probes' device functions (csrc/probes.cuh: instruction-rate
 bodies, the digit convolutions, the product's stages, the Poseidon
 ablations and the scan's passes under both combines) against their plain
@@ -24,6 +26,7 @@ from zkpos_tpu.crypto.poseidon_ref import permutation, poseidon
 from zkpos_tpu_torch.ops import poseidon as tpos
 from zkpos_tpu_torch.ops import poseidon_sparse as tsparse
 from zkpos_tpu_torch.probes import debug_product as pprod
+from zkpos_tpu_torch.probes import latency as platency
 from zkpos_tpu_torch.probes import probe_conv as pconv
 from zkpos_tpu_torch.probes import probe_kernel_split as psplit
 from zkpos_tpu_torch.probes import probe_segscan as pscan
@@ -39,21 +42,24 @@ def harness(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     so = str(tmp_path_factory.mktemp("rehearsal") / "rehearsal.so")
-    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-I",
-                    CSRC, "-o", so, os.path.join(HERE, "torch_rehearsal.cpp")],
+    subprocess.run(["g++", "-O1", "-std=c++17", "-pthread", "-shared",
+                    "-fPIC", "-I", CSRC, "-o", so,
+                    os.path.join(HERE, "torch_rehearsal.cpp")],
                    check=True, capture_output=True)
     L = ctypes.CDLL(so)
     V = ctypes.c_void_p
     L.rh_mont_mul.argtypes = [ctypes.c_int, V, V, V, ctypes.c_long]
     for fn in (L.rh_fp2_mul, L.rh_g1_add, L.rh_g2_add):
         fn.argtypes = [V, V, V, ctypes.c_long]
-    L.rh_poseidon_sparse3.argtypes = [V, V, V, V, ctypes.c_long]
-    L.rh_poseidon_plain.argtypes = [ctypes.c_int, V, V, V, V, ctypes.c_long]
-    L.rh_poseidon_chain.argtypes = [V, ctypes.c_int, V, V, V, V, V]
     I, LG = ctypes.c_int, ctypes.c_long
+    L.rh_poseidon_sparse3.argtypes = [V, V, V, V, LG]
+    L.rh_poseidon_sparse_warp.argtypes = [I, V, V, V, LG]
+    L.rh_poseidon_plain.argtypes = [I, V, V, V, V, LG]
+    L.rh_poseidon_chain.argtypes = [V, I, V, V, V]
     L.rh_probe_rate.argtypes = [I, V, V, LG, I]
     L.rh_probe_conv.argtypes = [I, V, V, V, LG]
     L.rh_probe_product.argtypes = [I, V, V, V, LG]
+    L.rh_probe_latency.argtypes = [V, V, V, LG, I]
     L.rh_probe_split.argtypes = [I, V, V, V, V, LG]
     L.rh_probe_scan.argtypes = [I, I, I, V, V, V, LG, I]
     return L
@@ -161,6 +167,19 @@ def test_poseidon_sparse3(harness):
     assert _from_mont(out) == [poseidon([x, y]) for x, y in zip(a, b)]
 
 
+@pytest.mark.parametrize("t", [3, 11, 17])
+def test_poseidon_sparse_warp(harness, t):
+    """One permutation of width t by the chain kernel's warp schedule (the
+    tables of ops/poseidon_sparse.table), lane by lane on host threads."""
+    states = [[0] * t, [0] + [bn.R - 1] * (t - 1), _rand(t, bn.R, 50 + t)]
+    st = _limbs([v * RM % bn.R for s in states for v in s])
+    k = _np(tsparse.table("cpu", t))
+    out = np.zeros((len(states), 8), dtype=np.uint32)
+    harness.rh_poseidon_sparse_warp(t, st.ctypes.data, k.ctypes.data,
+                                    out.ctypes.data, len(states))
+    assert _from_mont(out) == [permutation(s)[1] for s in states]
+
+
 @pytest.mark.parametrize("t", [3, 6, 17])
 def test_poseidon_plain(harness, t):
     n = 6
@@ -177,15 +196,16 @@ def test_poseidon_plain(harness, t):
 
 @pytest.mark.parametrize("n", [16, 17, 31, 46, 80])
 def test_poseidon_chain_rule(harness, n):
+    """The chain kernel's whole schedule (chain_warp: blocks of width 17
+    and one narrower tail on the sparse tables) on a host warp."""
     vals = _rand(n, bn.R, 100 + n)
     vals[-1] = bn.R - 1
     x = _limbs([v * RM % bn.R for v in vals])
-    c17, m17 = (_np(t) for t in tpos.tables(17, "cpu"))
-    ct, mt = (_np(t) for t in tpos.tables(tpos._tail_width(n), "cpu"))
+    k17 = _np(tsparse.table("cpu", 17))
+    kt = _np(tsparse.table("cpu", tpos._tail_width(n)))
     out = np.zeros((1, 8), dtype=np.uint32)
-    harness.rh_poseidon_chain(x.ctypes.data, n, c17.ctypes.data,
-                              m17.ctypes.data, ct.ctypes.data,
-                              mt.ctypes.data, out.ctypes.data)
+    harness.rh_poseidon_chain(x.ctypes.data, n, k17.ctypes.data,
+                              kt.ctypes.data, out.ctypes.data)
     assert _from_mont(out) == [poseidon(vals)]
 
 
@@ -229,15 +249,26 @@ def test_probe_product_stages(harness):
     assert torch.equal(m, r)
 
 
+def test_probe_latency(harness):
+    gen = torch.Generator().manual_seed(8)
+    a, b = (pprod.random_fr(5, gen, "cpu") for _ in range(2))
+    out = torch.empty_like(a)
+    harness.rh_probe_latency(a.data_ptr(), b.data_ptr(), out.data_ptr(), 5,
+                             37)
+    assert torch.equal(out, platency.plain_mont_chain(a, b, 37))
+
+
 @pytest.mark.parametrize("mode", psplit.MODES)
 def test_probe_split_variants(harness, mode):
-    lvl = psplit.random_level(8, 31, "cpu")
+    """Each variant on an odd count of pairs (hashes2 / hashes4 leave a
+    tail that runs on zeros and is not stored)."""
+    lvl = psplit.random_level(10, 31, "cpu")
     a, b = lvl[0::2].contiguous(), lvl[1::2].contiguous()
     out = torch.empty_like(a)
     k = tsparse.table("cpu")
     assert harness.rh_probe_split(psplit.MODES.index(mode), a.data_ptr(),
                                   b.data_ptr(), k.data_ptr(), out.data_ptr(),
-                                  4) == 0
+                                  5) == 0
     assert torch.equal(out, psplit.plain_split(mode, a, b))
     if mode == "full":
         assert torch.equal(out, tsparse.plain_hash2_mont_sparse(a, b))

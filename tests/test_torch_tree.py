@@ -11,7 +11,10 @@ versions of the Poseidon kernels), against the JAX package:
   asset universe 4, depth 12, tier 4:8 with 8 accounts: the row counts, a
   second run that writes nothing, and userproof rows whose leaves equal
   the JAX host leaf hash and whose proofs verify with
-  zkpos_tpu.merkle.tree.verify_proof.
+  zkpos_tpu.merkle.tree.verify_proof;
+* generate_batch_witnesses over three batches, whole and resumed: every
+  CEX commitment (computed ahead in one chain launch) against the JAX
+  package's host Poseidon over the running totals.
 """
 import base64
 import json
@@ -123,3 +126,48 @@ def test_witness_service(_sizes, tmp_path):
         assert config["Root"] == root.hex()
         proof = [base64.b64decode(p) for p in config["Proof"]]
         assert jtree.verify_proof(root, idx, proof, leaf, depth=12)
+
+
+def test_batched_cex_commitments(_sizes):
+    """generate_batch_witnesses over three batches (asset universe 4, tier
+    4:8): every before- and after-commitment, computed ahead in one chain
+    launch, against the JAX package's host Poseidon over
+    cex_asset_elements of the running totals (80 elements a commitment),
+    in a whole run and in one resumed from start_height = 1; the running
+    totals the generator leaves in its cex_assets argument are the final
+    ones."""
+    from zkpos_tpu.crypto.bn254 import fr_to_bytes
+    from zkpos_tpu.crypto.poseidon_ref import poseidon
+    from zkpos_tpu_torch.utils import commitments as cm
+    from zkpos_tpu_torch.utils import types as T
+    from zkpos_tpu_torch.witness import core as wcore
+    cex = chip_smoke.make_cex_assets(
+        TC, T.TierRatio, T.CexAssetInfo, cm.calculate_precomputed_value,
+        cm.padding_tier_ratios)
+    accounts = chip_smoke.make_accounts(
+        TC, cex, 24, 3, T.AccountAsset, T.AccountInfo,
+        cm.calculate_asset_value_for_collateral)
+    by_tier, capacity = wcore.prepare_accounts({4: accounts})
+    tree = wcore.build_account_tree(by_tier, capacity, device="cpu")
+
+    def commit(state):
+        elements = [e for a in state for e in jcm.cex_asset_elements(a)]
+        assert len(elements) == 80
+        return fr_to_bytes(poseidon(elements))
+
+    totals = wcore._copy_cex(cex)
+    expected = [commit(totals)]
+    for b in range(3):
+        for acc in by_tier[4][8 * b:8 * (b + 1)]:
+            wcore._accumulate(totals, acc)
+        expected.append(commit(totals))
+    for start in (-1, 1):
+        running = wcore._copy_cex(cex)
+        wits = list(wcore.generate_batch_witnesses(tree, by_tier, running,
+                                                   start_height=start))
+        assert [h for h, _ in wits] == list(range(start + 1, 3))
+        for h, wit in wits:
+            assert wit.before_cex_assets_commitment == expected[h]
+            assert wit.after_cex_assets_commitment == expected[h + 1]
+            assert commit(wit.before_cex_assets) == expected[h]
+        assert commit(running) == expected[3]

@@ -7,11 +7,84 @@
 #include "poseidon.cuh"
 #include "probes.cuh"
 
+#include <condition_variable>
+#include <mutex>
+#include <thread>
 #include <vector>
 
 using namespace ff;
 
 namespace {
+
+// --- a warp on the host: one thread per lane --------------------------------
+
+class Barrier {
+ public:
+  explicit Barrier(int n) : n_(n) {}
+  void wait() {
+    std::unique_lock<std::mutex> lk(m_);
+    const long gen = gen_;
+    if (++waiting_ == n_) {
+      waiting_ = 0;
+      ++gen_;
+      cv_.notify_all();
+    } else {
+      cv_.wait(lk, [&] { return gen_ != gen; });
+    }
+  }
+
+ private:
+  std::mutex m_;
+  std::condition_variable cv_;
+  const int n_;
+  int waiting_ = 0;
+  long gen_ = 0;
+};
+
+// The exchanges poseidon.cuh's warp schedule asks of W, for the lane
+// `lane` of a warp whose lanes are host threads: the barrier stands for
+// __syncwarp, and the broadcast and the sum go through `slots` where the
+// card uses shuffles.
+struct HostLanes {
+  Barrier bar{pos::kLanes};
+  uint32_t state[pos::kMaxWidth][8];
+  uint32_t parts[2 * pos::kLanes][8];
+  uint32_t slots[pos::kLanes][8];
+};
+
+struct HostExchange {
+  HostLanes* h;
+  int lane;
+  uint32_t* state;
+  uint32_t* parts;
+  void sync() { h->bar.wait(); }
+  void bcast(uint32_t* v, const uint32_t* x) {
+    if (lane == 0) pos::copy8(h->slots[0], x);
+    sync();
+    pos::copy8(v, h->slots[0]);
+    sync();
+  }
+  void sum(uint32_t* s, const uint32_t* c, int) {
+    pos::copy8(h->slots[lane], c);
+    sync();
+    pos::zero8(s);
+    for (int l = 0; l < pos::kLanes; ++l) add<Fr>(s, s, h->slots[l]);
+    sync();
+  }
+};
+
+// body(w, lane) on the 32 lanes of one host warp
+template <class F>
+void run_warp(F body) {
+  HostLanes h;
+  std::vector<std::thread> lanes;
+  for (int lane = 0; lane < pos::kLanes; ++lane)
+    lanes.emplace_back([&h, &body, lane] {
+      HostExchange w{&h, lane, &h.state[0][0], &h.parts[0][0]};
+      body(w, lane);
+    });
+  for (auto& th : lanes) th.join();
+}
 
 template <int T>
 void plain_rows(const uint32_t* st, const uint32_t* C, const uint32_t* M,
@@ -31,11 +104,12 @@ void rate_rows(void* x, const void* b, long n, int iters) {
   for (long i = 0; i < n; ++i) v[i] = probe::chain<B>(v[i], w[i], iters);
 }
 
-template <class P, bool STACK>
+template <class P, bool STACK, bool SYNC = false>
 void split_rows(const uint32_t* a, const uint32_t* b, const uint32_t* K,
                 uint32_t* out, long n) {
   for (long i = 0; i < n; ++i)
-    probe::sparse3_hash<P, STACK>(out + 8 * i, a + 8 * i, b + 8 * i, K, 0);
+    probe::sparse3_hash<P, STACK, SYNC>(out + 8 * i, a + 8 * i, b + 8 * i, K,
+                                        0);
 }
 
 // The three passes of the probe kernels run serially: every thread's block
@@ -67,6 +141,30 @@ void scan_stage(int comb, int recurse, const uint32_t* in,
                 const uint8_t* heads, uint32_t* out, long n, int K) {
   if (comb) scan3<E, probe::CombWrap>(in, heads, out, n, K, recurse);
   else scan3<E, probe::CombPadd>(in, heads, out, n, K, recurse);
+}
+
+// Poseidon(2) on the sparse schedule with H hashes a thread, as k_sparse3
+// (H = 1) and the probes' k_split_hashes run it: hashes i .. i + H - 1
+// together, the count's tail on zeros; K is the t = 3 table of
+// poseidon.cuh.
+template <int H>
+void sparse3_rows(const uint32_t* a, const uint32_t* b, const uint32_t* K,
+                  uint32_t* out, long n) {
+  for (long i = 0; i < n; i += H) {
+    uint32_t x[H][3][8];
+    for (int h = 0; h < H; ++h) {
+      pos::zero8(x[h][0]);
+      pos::zero8(x[h][1]);
+      pos::zero8(x[h][2]);
+      if (i + h < n) {
+        pos::copy8(x[h][1], a + 8 * (i + h));
+        pos::copy8(x[h][2], b + 8 * (i + h));
+      }
+    }
+    pos::permute_sparse3<H, true>(x, K);
+    for (int h = 0; h < H && i + h < n; ++h)
+      pos::copy8(out + 8 * (i + h), x[h][pos::kOutputIndex]);
+  }
 }
 
 }  // namespace
@@ -103,17 +201,25 @@ void rh_g2_add(const uint32_t* a, const uint32_t* b, uint32_t* out, long n) {
                 padd(load_point<Fp2>(a + 48 * i), load_point<Fp2>(b + 48 * i)));
 }
 
-// Poseidon(2) on the sparse schedule; K is the table of poseidon.cuh.
+// Poseidon(2) on the sparse schedule, one hash a thread (k_sparse3).
 void rh_poseidon_sparse3(const uint32_t* a, const uint32_t* b,
                          const uint32_t* K, uint32_t* out, long n) {
-  for (long i = 0; i < n; ++i) {
-    uint32_t x[3][8];
-    pos::zero8(x[0]);
-    pos::copy8(x[1], a + 8 * i);
-    pos::copy8(x[2], b + 8 * i);
-    pos::permute_sparse3(x, K);
-    pos::copy8(out + 8 * i, x[pos::kOutputIndex]);
-  }
+  sparse3_rows<1>(a, b, K, out, n);
+}
+
+// n states of t lanes -> their digests, each permutation run on a host warp
+// by the schedule of the chain kernel (poseidon.cuh permute_warp); K is the
+// width-t sparse table
+void rh_poseidon_sparse_warp(int t, const uint32_t* st, const uint32_t* K,
+                             uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i)
+    run_warp([&](HostExchange& w, int lane) {
+      uint32_t x[8];
+      if (lane < t) pos::copy8(x, st + 8 * (t * i + lane));
+      else pos::zero8(x);
+      pos::permute_warp(w, x, lane, t, K);
+      if (lane == pos::kOutputIndex) pos::copy8(out + 8 * i, x);
+    });
 }
 
 // n states of t lanes -> their digests (t = 3, 6 or 17)
@@ -127,36 +233,16 @@ int rh_poseidon_plain(int t, const uint32_t* st, const uint32_t* C,
   }
 }
 
-// One chain of n inputs, run as the warp kernel of poseidon.cu runs it:
-// the same block schedule and the same per-lane round pieces, with the
-// lanes taken one after another and the exchange through `sh`.
-void rh_poseidon_chain(const uint32_t* in, int n, const uint32_t* C17,
-                       const uint32_t* M17, const uint32_t* Ct,
-                       const uint32_t* Mt, uint32_t* out) {
-  uint32_t x[pos::kMaxWidth][8], sh[pos::kMaxWidth][8], digest[8];
-  pos::zero8(digest);
-  for (int b = 0; b < pos::chain_blocks(n); ++b) {
-    int start, count, t;
-    pos::chain_block(n, b, &start, &count, &t);
-    const uint32_t* C = t == pos::kMaxWidth ? C17 : Ct;
-    const uint32_t* M = t == pos::kMaxWidth ? M17 : Mt;
-    const int rp = pos::partial_rounds(t);
-    const int first = b == 0 ? 1 : 2;
-    for (int lane = 0; lane < t; ++lane) {
-      pos::zero8(x[lane]);
-      if (b > 0 && lane == 1) pos::copy8(x[lane], digest);
-      if (lane >= first) pos::copy8(x[lane], in + 8 * (start + lane - first));
-    }
-    for (int r = 0; r < pos::kFullRounds + rp; ++r) {
-      for (int lane = 0; lane < t; ++lane)
-        pos::lane_pre(x[lane], lane, r, t, rp, C);
-      for (int lane = 0; lane < t; ++lane) pos::copy8(sh[lane], x[lane]);
-      for (int lane = 0; lane < t; ++lane)
-        pos::lane_mix(x[lane], lane, t, &sh[0][0], M);
-    }
-    pos::copy8(digest, x[pos::kOutputIndex]);
-  }
-  pos::copy8(out, digest);
+// One chain of n inputs on a host warp, by the chain kernel's schedule
+// (poseidon.cuh chain_warp); K17 and Kt are the sparse tables of width 17
+// and of the chain's narrower block.
+void rh_poseidon_chain(const uint32_t* in, int n, const uint32_t* K17,
+                       const uint32_t* Kt, uint32_t* out) {
+  run_warp([&](HostExchange& w, int lane) {
+    uint32_t x[8];
+    pos::chain_warp(w, x, lane, in, n, K17, Kt);
+    if (lane == pos::kOutputIndex) pos::copy8(out, x);
+  });
 }
 
 // --- the probes' device functions (probes.cuh) -------------------------------
@@ -190,6 +276,15 @@ void rh_probe_conv(int form, const float* a, const float* b, float* out,
   }
 }
 
+// as zk_probe_latency, one row after another
+void rh_probe_latency(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                      long n, int steps) {
+  for (long i = 0; i < n; ++i) {
+    pos::copy8(out + 8 * i, a + 8 * i);
+    probe::mont_chain(out + 8 * i, b + 8 * i, steps);
+  }
+}
+
 // stage as zk_probe_product (Fr)
 void rh_probe_product(int stage, const uint32_t* a, const uint32_t* b,
                       uint32_t* out, long n) {
@@ -211,6 +306,14 @@ int rh_probe_split(int mode, const uint32_t* a, const uint32_t* b,
     case 3: split_rows<PNoFinalSub, false>(a, b, K, out, n); return 0;
     case 4: split_rows<PNoConst, false>(a, b, K, out, n); return 0;
     case 5: split_rows<PFull, true>(a, b, K, out, n); return 0;
+    case 6: split_rows<PFull, false>(a, b, K, out, n); return 0;
+    case 7: split_rows<PFull, false, true>(a, b, K, out, n); return 0;
+    case 8:
+      for (long i = 0; i < n; ++i)
+        probe::sparse3_registers(out + 8 * i, a + 8 * i, b + 8 * i, K);
+      return 0;
+    case 9: sparse3_rows<2>(a, b, K, out, n); return 0;
+    case 10: sparse3_rows<4>(a, b, K, out, n); return 0;
     default: return 1;
   }
 }

@@ -11,7 +11,11 @@
 //     digits in registers; bounded by FP32 FMAs;
 //   * k_prod / k_redc / k_cios: the Montgomery product's stages apart and
 //     fused; bounded by 32-bit multiplies;
-//   * k_split: the sparse Poseidon(2) of poseidon.cu ablated by policy;
+//   * k_latency: the fused product's latency, dependent products on one
+//     warp;
+//   * k_split: the sparse Poseidon(2) of poseidon.cu ablated by policy,
+//     and k_split_hashes, poseidon.cu's k_sparse3 at two or four hashes a
+//     thread;
 //   * k_scan_copy / k_scan_local / k_scan_fixup: the three-pass scan of
 //     seg_scan.cu with a real or a wrapping combine, and its bare copy;
 //   * k_dot_ffma / k_dot_tf32: the weights-first product W(64,64) @ X(64,N)
@@ -125,29 +129,94 @@ __global__ void k_cios(uint32_t* out, const uint32_t* a, const uint32_t* b,
   st8(out + 8 * i, r);
 }
 
-// --- Poseidon(2) ablations: k_sparse3 of poseidon.cu over a policy ----------
-
-template <class P, bool STACK>
-__global__ void k_split(uint32_t* out, const uint32_t* a, const uint32_t* b,
-                        long long n, long long stride, const uint32_t* K,
-                        int z) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// one warp, thread i: out[i] = a[i] b[i]^steps by `steps` dependent
+// products (probe::mont_chain); n <= 32
+__global__ void __launch_bounds__(32)
+k_latency(uint32_t* out, const uint32_t* a, const uint32_t* b, int n,
+          int steps) {
+  const int i = threadIdx.x;
   if (i >= n) return;
-  uint32_t x[8], y[8], h[8];
-  ld8(x, a + stride * i);
-  ld8(y, b + stride * i);
-  probe::sparse3_hash<P, STACK>(h, x, y, K, z);
-  st8(out + 8 * i, h);
+  uint32_t x[8], y[8];
+  ld8(x, a + 8 * i);
+  ld8(y, b + 8 * i);
+  probe::mont_chain(x, y, steps);
+  st8(out + 8 * i, x);
 }
 
-template <class P, bool STACK>
+// --- Poseidon(2) ablations: k_sparse3 of poseidon.cu over a policy ----------
+//
+// BLOCK threads a block; with SYNC a block barrier at every partial round,
+// so no thread leaves early: one past n hashes zeros and stores nothing.
+// REG runs probe::sparse3_registers in place of the policy's schedule.
+
+template <class P, bool STACK, bool SYNC, int BLOCK, bool REG>
+__global__ void __launch_bounds__(BLOCK)
+k_split(uint32_t* out, const uint32_t* a, const uint32_t* b, long long n,
+        long long stride, const uint32_t* K, int z) {
+  long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (!SYNC && i >= n) return;
+  uint32_t x[8], y[8], h[8];
+  pos::zero8(x);
+  pos::zero8(y);
+  if (i < n) {
+    ld8(x, a + stride * i);
+    ld8(y, b + stride * i);
+  }
+  if constexpr (REG) probe::sparse3_registers(h, x, y, K);
+  else probe::sparse3_hash<P, STACK, SYNC>(h, x, y, K, z);
+  if (i < n) st8(out + 8 * i, h);
+}
+
+template <class P, bool STACK, bool SYNC = false, int BLOCK = kBlock,
+          bool REG = false>
 int launch_split(void* out, const void* a, const void* b, long long n,
                  long long stride, const void* K, int z, void* stream) {
   if (n > 0)
-    k_split<P, STACK><<<grid_for(n, kBlock), kBlock, 0,
-                        (cudaStream_t)stream>>>(
+    k_split<P, STACK, SYNC, BLOCK, REG><<<grid_for(n, BLOCK), BLOCK, 0,
+                                          (cudaStream_t)stream>>>(
         (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, stride,
         (const uint32_t*)K, z);
+  return (int)cudaGetLastError();
+}
+
+// H hashes a thread: poseidon.cu's k_sparse3 (blocks of 1,024, a barrier at
+// every partial round) with the hashes of pos::permute_sparse3<H>
+// interleaved.  Thread x of block g takes hashes g 1024 H + x + 1024 h
+// (h < H), so a warp's reads of hash h are neighbours; a hash past n runs
+// on zeros and is not stored.
+template <int H>
+__global__ void __launch_bounds__(1024, 1)
+k_split_hashes(uint32_t* out, const uint32_t* a, const uint32_t* b,
+               long long n, long long stride, const uint32_t* K) {
+  const long long base = (long long)blockIdx.x * 1024 * H + threadIdx.x;
+  uint32_t x[H][3][8];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const long long i = base + (long long)h * 1024;
+    pos::zero8(x[h][0]);
+    pos::zero8(x[h][1]);
+    pos::zero8(x[h][2]);
+    if (i < n) {
+      ld8(x[h][1], a + stride * i);
+      ld8(x[h][2], b + stride * i);
+    }
+  }
+  pos::permute_sparse3<H, true>(x, K);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const long long i = base + (long long)h * 1024;
+    if (i < n) st8(out + 8 * i, x[h][pos::kOutputIndex]);
+  }
+}
+
+template <int H>
+int launch_split_hashes(void* out, const void* a, const void* b, long long n,
+                        long long stride, const void* K, void* stream) {
+  if (n > 0)
+    k_split_hashes<H><<<grid_for(n, 1024 * H), 1024, 0,
+                        (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, stride,
+        (const uint32_t*)K);
   return (int)cudaGetLastError();
 }
 
@@ -470,8 +539,18 @@ int zk_probe_product(int stage, void* out, const void* a, const void* b,
   return (int)cudaGetLastError();
 }
 
+// n <= 32 rows on one warp, each `steps` dependent products (Fr)
+int zk_probe_latency(void* out, const void* a, const void* b, int n,
+                     int steps, void* stream) {
+  if (n <= 0 || n > 32 || steps < 0) return (int)cudaErrorInvalidValue;
+  k_latency<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, steps);
+  return (int)cudaGetLastError();
+}
+
 // mode: 0 full, 1 noproduct, 2 noreduce, 3 nofinalsub, 4 noconst,
-// 5 stackstate (z must be 0); a, b, stride, K as zk_poseidon_sparse3
+// 5 stackstate (z must be 0), 6 block1024, 7 lockstep, 8 registers,
+// 9 hashes2, 10 hashes4; a, b, stride, K as zk_poseidon_sparse3
 int zk_probe_split(int mode, void* out, const void* a, const void* b,
                    long long n, long long stride, const void* K, int z,
                    void* stream) {
@@ -483,6 +562,11 @@ int zk_probe_split(int mode, void* out, const void* a, const void* b,
     case 3: return launch_split<PNoFinalSub, false>(out, a, b, n, stride, K, z, stream);
     case 4: return launch_split<PNoConst, false>(out, a, b, n, stride, K, z, stream);
     case 5: return launch_split<PFull, true>(out, a, b, n, stride, K, z, stream);
+    case 6: return launch_split<PFull, false, false, 1024>(out, a, b, n, stride, K, z, stream);
+    case 7: return launch_split<PFull, false, true, 1024>(out, a, b, n, stride, K, z, stream);
+    case 8: return launch_split<PFull, false, false, kBlock, true>(out, a, b, n, stride, K, z, stream);
+    case 9: return launch_split_hashes<2>(out, a, b, n, stride, K, stream);
+    case 10: return launch_split_hashes<4>(out, a, b, n, stride, K, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -266,6 +266,13 @@ FF_HD void mul_lazy(uint32_t* r, const uint32_t* a, const uint32_t* b) {
   for (int i = 0; i < 8; ++i) r[i] = t[i];
 }
 
+// x <- x b (field.cuh's fused product in Fr) `steps` times, each product
+// waiting on the one before: the latency of one product, as a lone warp of
+// the chain kernel pays it on its critical path
+FF_HD void mont_chain(uint32_t* x, const uint32_t* b, int steps) {
+  for (int s = 0; s < steps; ++s) ff::mul<Fr>(x, x, b);
+}
+
 // --- the sparse Poseidon(2) over an ablation policy ---------------------------
 //
 // A policy gives the product (mul) and the read of a table entry (ld).
@@ -327,10 +334,12 @@ struct PNoConst : PFull {
   }
 };
 
-// The schedule of pos::permute_sparse3 over a policy.  STACK sends every
-// lane index through `z` (0 at run time, unknown to the compiler), which
-// forces the state into a local array as k_plain's is (poseidon.cuh:115).
-template <class P, bool STACK>
+// The sparse schedule at one hash a thread over a policy.  STACK sends
+// every lane index through `z` (0 at run time, unknown to the compiler),
+// which forces the state into a local array as k_plain's is.  SYNC puts a
+// block barrier at every partial round (pos::block_sync), as the main
+// kernel does.
+template <class P, bool STACK, bool SYNC = false>
 struct Sparse3 {
   const P& pol;
   int z;
@@ -380,6 +389,7 @@ struct Sparse3 {
       full_round3(x, K, r < half - 1 ? K + 8 * (kCFull + T * r) : 0);
     add_c(lane(x, 0), K + 8 * kD);
     for (int i = 0; i < RP; ++i) {
+      if (SYNC) pos::block_sync();
       sbox(lane(x, 0));
       if (i < RP - 1) {
         const uint32_t* row = K + 8 * (kSparse + kRow * i);
@@ -401,18 +411,81 @@ struct Sparse3 {
 };
 
 // one hash of the variant: out = lane 1 of the permuted (0, a, b)
-template <class P, bool STACK>
+template <class P, bool STACK, bool SYNC = false>
 FF_HD void sparse3_hash(uint32_t* out, const uint32_t* a, const uint32_t* b,
                         const uint32_t* K, int z) {
   P pol;
   pol.init(K);
-  Sparse3<P, STACK> s{pol, z};
+  Sparse3<P, STACK, SYNC> s{pol, z};
   uint32_t x[3][8];
   pos::zero8(x[0]);
   pos::copy8(x[1], a);
   pos::copy8(x[2], b);
   s.permute(x, K);
   pos::copy8(out, s.lane(x, pos::kOutputIndex));
+}
+
+// registers: the same schedule with every lane loop unrolled, so that each
+// index into the state is known at compile time and the state stays in
+// registers (no stack frame); one hash a thread, poseidon.cuh's product
+FF_HD void sparse3_registers(uint32_t* out, const uint32_t* a,
+                             const uint32_t* b, const uint32_t* K) {
+  using namespace pos::sparse3;
+  uint32_t x[3][8], k[8];
+  pos::zero8(x[0]);
+  pos::copy8(x[1], a);
+  pos::copy8(x[2], b);
+  auto full = [&](const uint32_t* c_next) {
+    uint32_t nx[3][8];
+    FF_UNROLL
+    for (int i = 0; i < 3; ++i) pos::sbox(x[i]);
+    FF_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      pos::zero8(nx[i]);
+      FF_UNROLL
+      for (int j = 0; j < 3; ++j) pos::fma_c(nx[i], K + 8 * (kMds + 3 * i + j), x[j]);
+    }
+    FF_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      pos::copy8(x[i], nx[i]);
+      if (c_next) pos::add_c(x[i], c_next + 8 * i);
+    }
+  };
+  FF_UNROLL
+  for (int i = 0; i < T; ++i) pos::add_c(x[i], K + 8 * (kCInit + i));
+  for (int r = 0; r < pos::kHalfFull; ++r)
+    full(r < pos::kHalfFull - 1 ? K + 8 * (kCFull + T * r) : 0);
+  pos::add_c(x[0], K + 8 * kD);
+  for (int i = 0; i < RP - 1; ++i) {
+    const uint32_t* row = K + 8 * (kSparse + kRow * i);
+    uint32_t y[8];
+    pos::sbox(x[0]);
+    pos::zero8(y);
+    FF_UNROLL
+    for (int j = 0; j < T; ++j) pos::fma_c(y, row + 8 * j, x[j]);
+    FF_UNROLL
+    for (int j = 1; j < T; ++j) pos::fma_c(x[j], row + 8 * (T - 1 + j), x[0]);
+    pos::ldc(k, K + 8 * (kD + i + 1));
+    ff::add<Fr>(x[0], y, k);
+  }
+  pos::sbox(x[0]);
+  {
+    uint32_t nx[3][8];
+    FF_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      pos::zero8(nx[i]);
+      FF_UNROLL
+      for (int j = 0; j < 3; ++j) pos::fma_c(nx[i], K + 8 * (kDense + 3 * i + j), x[j]);
+    }
+    FF_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      pos::copy8(x[i], nx[i]);
+      pos::add_c(x[i], K + 8 * (kCResume + i));
+    }
+  }
+  for (int r = 0; r < pos::kHalfFull; ++r)
+    full(r < pos::kHalfFull - 1 ? K + 8 * (kCFull2 + T * r) : 0);
+  pos::copy8(out, x[pos::kOutputIndex]);
 }
 
 // --- segmented-scan pieces over a combine policy ----------------------------

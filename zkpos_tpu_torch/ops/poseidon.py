@@ -13,16 +13,18 @@ Wrappers and their kernels (csrc/poseidon.cu):
   permutation, ``zk_poseidon_plain`` (launch name ``poseidon_plain_t{t}``);
 * ``hash_chain_mont``: the chaining rule for more than 16 inputs as one
   ``permute`` per block, many columns side by side (the leaf commitments);
-* ``chain_mont``: a whole chain in one launch, one warp per chain
-  (``zk_poseidon_chain``, launch name ``poseidon_chain``) -- the long,
-  sequential CEX commitment.
+* ``chain_mont``: whole chains in one launch, one warp per chain, on the
+  sparse-MDS schedule (``zk_poseidon_chain``, launch name
+  ``poseidon_chain``) -- the long, sequential CEX commitments, all those
+  of a run of batches side by side (``hash_chains_fast``).
 
 Each launches its kernel for tensors on the card and runs its plain
 version for tensors on the CPU.  The plain versions work on 16-bit limbs
 in int64 (the representation of ops/field.py's plain versions) with a
 fixed number of tensor calls per round whatever t is: one product for the
 S-boxes of all lanes, one product over (B, t, t) for the MDS mix, and one
-lazy limb sum over j followed by one reduction.
+lazy limb sum over j followed by one reduction.  ``plain_chain_mont`` runs
+the chain kernel's schedule, the sparse one of ops/poseidon_sparse.py.
 """
 
 from __future__ import annotations
@@ -199,8 +201,9 @@ def hash_chain_mont(inputs: torch.Tensor) -> torch.Tensor:
 
 
 def plain_chain_mont(inputs: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``chain_mont``."""
-    return _chain(inputs, plain_permute)
+    """Plain version of ``chain_mont``, on its schedule (the sparse one)."""
+    from .poseidon_sparse import plain_permute_sparse
+    return _chain(inputs, plain_permute_sparse)
 
 
 def _tail_width(n: int) -> int:
@@ -213,23 +216,29 @@ def _tail_width(n: int) -> int:
 
 
 def chain_mont(inputs: torch.Tensor) -> torch.Tensor:
-    """The same digests as ``hash_chain_mont``, each chain in one warp of
-    one launch: for a few long chains, whose permutations are
-    sequential."""
+    """The same digests as ``hash_chain_mont``, all B chains of a (B, n, 8)
+    batch in one launch, one warp per chain on the sparse schedule: for
+    long chains, whose permutations are sequential."""
+    from .poseidon_sparse import Layout, table
     _check_rows(inputs, 3)
     b, n = inputs.shape[:2]
     if n == 0:
         raise ValueError("poseidon requires at least one input")
     if inputs.device.type == "cpu":
         return plain_chain_mont(inputs)
+    if inputs.data_ptr() % 16:
+        raise ValueError("chain_mont needs 16-byte-aligned inputs")
     dev = str(inputs.device)
-    c17, m17 = tables(MAX_INPUTS + 1, dev)
-    ct, mt = tables(_tail_width(n), dev)
+    tail = _tail_width(n)
+    # the tables the chain's blocks use: width 17 if any block is 17 wide,
+    # and the width of its one narrower block, if any
+    k17, kt = table(dev, MAX_INPUTS + 1), table(dev, tail)
+    e17 = Layout(MAX_INPUTS + 1).entries if n >= MAX_INPUTS else 0
+    et = Layout(tail).entries if tail <= MAX_INPUTS else 0
     out = torch.empty((b, 8), dtype=torch.int32, device=inputs.device)
     L = build.cuda_lib()
     build.check(L.zk_poseidon_chain(build.ptr(out), build.ptr(inputs), b, n,
-                                    build.ptr(c17), build.ptr(m17),
-                                    build.ptr(ct), build.ptr(mt),
+                                    build.ptr(k17), e17, build.ptr(kt), et,
                                     build.stream_ptr(inputs)),
                 "poseidon_chain")
     F.count_launch("poseidon_chain", b * n)
@@ -254,13 +263,25 @@ def hash_batch(inputs, device=None) -> List[int]:
     return F.tensor_to_ints(F.from_mont(digest))
 
 
+def hash_chains_fast(rows, device=None) -> List[int]:
+    """Variadic Poseidon of each of several element lists of one length
+    (the CEX commitments of a run of batches): every chain in one
+    ``chain_mont`` launch, the inputs put in Montgomery form on the device
+    in one call.  Lists of at most HOST_SHORTCUT elements take the host
+    hash."""
+    rows = [list(r) for r in rows]
+    n = len(rows[0])
+    if any(len(r) != n for r in rows):
+        raise ValueError("hash_chains_fast takes lists of one length")
+    if n <= HOST_SHORTCUT:
+        return [host_poseidon(r) for r in rows]
+    x = mont_tensor([v for r in rows for v in r], resolve(device))
+    return F.tensor_to_ints(F.from_mont(chain_mont(
+        x.reshape(len(rows), n, 8))))
+
+
 def hash_chain_fast(elements, device=None) -> int:
     """One variadic Poseidon over a long element list (the 20 x AssetCounts
     CEX commitment, reference utils.go:779-800) in one launch; short
     inputs take the host hash."""
-    elements = list(elements)
-    if len(elements) <= HOST_SHORTCUT:
-        return host_poseidon(elements)
-    x = mont_tensor(elements, resolve(device))
-    return F.tensor_to_ints(F.from_mont(chain_mont(
-        x.reshape(1, len(elements), 8))))[0]
+    return hash_chains_fast([elements], device)[0]

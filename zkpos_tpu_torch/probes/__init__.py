@@ -4,7 +4,9 @@ Each module keeps its TPU script's name and holds one kernel family of
 csrc/probes.cu with its plain PyTorch version: ``rates`` (micro_probe2.py,
 micro_probe3.py's VPU bodies), ``probe_conv``, ``debug_product``
 (debug_f32p.py), ``probe_kernel_split``, ``probe_segscan`` and
-``probe_dot`` (micro_probe3.py's k_dot and k_mix).  Each module's ``run``
+``probe_dot`` (micro_probe3.py's k_dot and k_mix); ``latency`` is the
+port's own (the product's latency on a lone warp, which the hash chain
+pays).  Each module's ``run``
 times its variants on the card and returns a ``check`` that holds them
 against the plain versions and returns the rows; ``run_probe`` counts the
 timed launches alone.  ``python -m zkpos_tpu_torch.probes`` prints one
@@ -15,13 +17,14 @@ probes path.
 from __future__ import annotations
 
 from ..ops import field as F
-from . import (debug_product, probe_conv, probe_dot, probe_kernel_split,
-               probe_segscan, rates)
+from . import (debug_product, latency, probe_conv, probe_dot,
+               probe_kernel_split, probe_segscan, rates)
 
 PROBES = (("rates", rates), ("probe_conv", probe_conv),
           ("debug_product", debug_product),
           ("probe_kernel_split", probe_kernel_split),
-          ("probe_segscan", probe_segscan), ("probe_dot", probe_dot))
+          ("probe_segscan", probe_segscan), ("probe_dot", probe_dot),
+          ("latency", latency))
 
 
 def kernel_names():
@@ -33,7 +36,8 @@ def kernel_names():
             + [f"scan_{s}_{c}" for c in ("g1", "g2")
                for s in probe_segscan.STAGES]
             + [f"dot_{k}_{r}" for k in probe_dot.KINDS
-               for r in probe_dot.ROUTES])
+               for r in probe_dot.ROUTES]
+            + ["latency_mont"])
 
 
 def run_probe(mod, device=None, log=print, **kw):

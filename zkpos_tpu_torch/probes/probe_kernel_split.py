@@ -3,10 +3,11 @@
 Counterpart of scripts/probe_kernel_split.py:28-127 (``build_variant(mode)
 .kern``), which ran the TPU's fused ``_perm2_kernel`` with one part of its
 work taken out at a time and read each part's share of the full time.
-Here the kernel is ``k_sparse3`` of csrc/poseidon.cu, rebuilt as one
-template over a policy in csrc/probes.cuh (``probe::Sparse3``); the main
-path's kernel is left as it is.  Variants, with the TPU mode each stands
-for:
+Here the kernel is the sparse schedule of csrc/poseidon.cu's
+``k_sparse3`` at one hash a thread in blocks of 128 threads, without the
+main kernel's block barrier, rebuilt as one template over a policy in
+csrc/probes.cuh (``probe::Sparse3``); the main path's kernel is left as
+it is.  Variants, with the TPU mode each stands for:
 
 * ``full``: the schedule as it is; equal to ops/poseidon_sparse
   .hash2_mont_sparse bit for bit;
@@ -21,7 +22,16 @@ for:
   differ by entry, so no product of the schedule can be merged), the
   first suspect of PERF.md's sparse-versus-plain question;
 * ``stackstate``: the state sent through a local array by a lane index the
-  compiler cannot resolve, as k_plain's state is, the second suspect.
+  compiler cannot resolve, as k_plain's state is, the second suspect;
+* ``block1024``: ``full`` in blocks of 1,024 threads, one to an SM;
+* ``lockstep``: ``block1024`` with a block barrier at every partial round,
+  the main kernel's layout (PERF.md: the warps of an SM that run the same
+  round's instructions together);
+* ``registers``: ``full`` with every lane loop unrolled, so that the state
+  stays in registers (``probe::sparse3_registers``);
+* ``hashes2`` / ``hashes4``: the main kernel itself (``lockstep``'s layout,
+  hash loops unrolled) at two or four hashes a thread, interleaved so that
+  each partial round has independent products (``k_split_hashes``).
 
 Each variant is defined by its plain version (``plain_split``), which the
 g++ rehearsal and the card hold the kernel to bit for bit, so a variant
@@ -45,7 +55,16 @@ from ..utils.device import resolve
 from . import common as C
 
 MODES = ("full", "noproduct", "noreduce", "nofinalsub", "noconst",
-         "stackstate")
+         "stackstate", "block1024", "lockstep", "registers", "hashes2",
+         "hashes4")
+# (state through the stack, barrier each partial round, threads a block)
+# of the modes that change the layout; the others: (0, 0, 128)
+LAYOUT = {"stackstate": (1, 0, 128), "block1024": (0, 0, 1024),
+          "lockstep": (0, 1, 1024)}
+# the modes on probe::sparse3_registers (the last template flag)
+REGISTERS = ("registers",)
+# the modes on k_split_hashes, by hashes a thread
+HASHES = {"hashes2": 2, "hashes4": 4}
 REPLACES = "scripts/probe_kernel_split.py:86"
 LOG_LEAVES = 27         # the tree path's leaves: 2^26 pairs at level 0
 REPS = 3
@@ -53,7 +72,9 @@ CHECK_N = 1 << 10
 MONTS = 604             # Montgomery products of one sparse Poseidon(2)
 MULS = {"full": C.MULS_PER_MONT, "noproduct": 8, "noreduce": 128,
         "nofinalsub": C.MULS_PER_MONT, "noconst": C.MULS_PER_MONT,
-        "stackstate": C.MULS_PER_MONT}
+        "stackstate": C.MULS_PER_MONT, "block1024": C.MULS_PER_MONT,
+        "lockstep": C.MULS_PER_MONT, "registers": C.MULS_PER_MONT,
+        "hashes2": C.MULS_PER_MONT, "hashes4": C.MULS_PER_MONT}
 M32 = 0xFFFFFFFF
 # probes.cuh's PNoConst: limb i of entry e is (8 e + i + 1) * NOCONST_MUL
 NOCONST_MUL = 0x9E3779B1
@@ -113,7 +134,8 @@ def plain_split(mode: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     products as the kernel adds them."""
     K = _table16(mode, str(a.device))
     mul16 = _mul_of(mode)
-    T = S.T
+    L = S.Layout(S.T)
+    T = L.t
 
     def mul(c, v):
         return mul16(c.expand_as(v).contiguous(), v)
@@ -135,7 +157,7 @@ def plain_split(mode: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
 
     def full(x, c_next):
-        x = mix([sbox(v) for v in x], K[S.MDS:])
+        x = mix([sbox(v) for v in x], K[L.mds:])
         if c_next is not None:
             x = [add_any16(v, c_next[i].expand_as(v)) for i, v in
                  enumerate(x)]
@@ -143,26 +165,26 @@ def plain_split(mode: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     a16 = F._to16(a)
     x = [torch.zeros_like(a16), a16, F._to16(b)]
-    x = [add_any16(v, K[S.C_INIT + i].expand_as(v)) for i, v in enumerate(x)]
+    x = [add_any16(v, K[L.c_init + i].expand_as(v)) for i, v in enumerate(x)]
     for r in range(4):
-        x = full(x, K[S.C_FULL + T * r:] if r < 3 else None)
-    x[0] = add_any16(x[0], K[S.D_PARTIAL].expand_as(x[0]))
-    for i in range(S.RP):
+        x = full(x, K[L.c_full(r):] if r < 3 else None)
+    x[0] = add_any16(x[0], K[L.d_partial].expand_as(x[0]))
+    for i in range(L.rp):
         x[0] = sbox(x[0])
-        if i < S.RP - 1:
-            row = K[S.SPARSE + S.ROW * i:]
+        if i < L.rp - 1:
+            row = K[L.rows + L.row * i:]
             x0 = torch.zeros_like(x[0])
             for j in range(T):
                 x0 = fma(x0, row[j], x[j])
             for j in range(1, T):
                 x[j] = fma(x[j], row[T - 1 + j], x[0])
-            x[0] = add_any16(x0, K[S.D_PARTIAL + i + 1].expand_as(x0))
+            x[0] = add_any16(x0, K[L.d_partial + i + 1].expand_as(x0))
         else:
-            x = mix(x, K[S.DENSE:])
-            x = [add_any16(v, K[S.C_RESUME + j].expand_as(v))
+            x = mix(x, K[L.dense:])
+            x = [add_any16(v, K[L.c_resume + j].expand_as(v))
                  for j, v in enumerate(x)]
     for r in range(4):
-        x = full(x, K[S.C_FULL2 + T * r:] if r < 3 else None)
+        x = full(x, K[L.c_full2(r):] if r < 3 else None)
     return F._from16(x[1])
 
 
@@ -241,8 +263,11 @@ def run(device=None, log=print):
             err = C.max_abs_err(got, p)
             if m == "full" and not full_eq:
                 err = max(err, 1)
-            res = {k: v for k, v in ptxas.items() if _policy(m) in k
-                   and (("Lb1E" in k) == (m == "stackstate"))}
+            stack, sync, block = LAYOUT.get(m, (0, 0, 128))
+            key = (f"k_split_hashesILi{HASHES[m]}E" if m in HASHES else
+                   f"{_policy(m)}ELb{stack}ELb{sync}ELi{block}ELb"
+                   f"{int(m in REGISTERS)}E")
+            res = {k: v for k, v in ptxas.items() if key in k}
             r = C.row(f"split_{m}", REPLACES, n, times[m], plain_ms, CHECK_N,
                       96 * n, MONTS * MULS[m] * n / C.INT32_OPS_PER_S, err,
                       reps=REPS, mhash_per_s=round(n / times[m] / 1e3, 3),

@@ -118,10 +118,11 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_seg_scan_fixup": [I, V, V, V, LL, I, V],
                 "zk_poseidon_sparse3": [V, V, V, LL, LL, V, V],
                 "zk_poseidon_plain": [I, V, V, LL, V, V, V],
-                "zk_poseidon_chain": [V, V, LL, I, V, V, V, V, V],
+                "zk_poseidon_chain": [V, V, LL, I, V, I, V, I, V],
                 "zk_probe_rate": [I, V, V, V, LL, I, V],
                 "zk_probe_conv": [I, V, V, V, LL, V],
                 "zk_probe_product": [I, V, V, V, LL, V],
+                "zk_probe_latency": [V, V, V, I, I, V],
                 "zk_probe_split": [I, V, V, V, LL, LL, V, I, V],
                 "zk_probe_scan_copy": [I, V, V, V, V, LL, I, V],
                 "zk_probe_scan_local": [I, I, V, V, V, V, V, LL, I, V],

@@ -100,13 +100,15 @@ def _copy_cex(cex: List[CexAssetInfo]) -> List[CexAssetInfo]:
     ) for a in cex]
 
 
-def _cex_commitment_bytes(cex: List[CexAssetInfo], device=None) -> bytes:
-    elements = []
-    for a in cex:
-        elements += cex_asset_elements(a)
-    # chained hash over 20*AssetCounts elements (witness.go:158-176), one
-    # launch: 2 commitments per batch
-    return fr_to_bytes(pos.hash_chain_fast(elements, device))
+def _cex_elements(cex: List[CexAssetInfo]) -> List[int]:
+    """The 20 x AssetCounts elements of a CEX commitment
+    (witness.go:158-176)."""
+    return [e for a in cex for e in cex_asset_elements(a)]
+
+
+# batches whose CEX commitments go to the card in one launch: at the
+# production 500 assets, 256 chains of 10,000 inputs are 82 MB of input
+CHAIN_GROUP = 256
 
 
 def _accumulate(cex_assets: List[CexAssetInfo], acc: AccountInfo) -> None:
@@ -127,30 +129,46 @@ def generate_batch_witnesses(tree: AccountTree,
                              ) -> Iterator[Tuple[int, BatchCreateUserWitness]]:
     """Yields (height, witness) per batch, maintaining running CEX totals.
     All proofs are against the FINAL tree root (witness.go:138,169-171).
-    `cex_assets` is mutated (running totals), matching the reference."""
+    `cex_assets` is mutated (running totals), matching the reference:
+    batch by batch, as each witness is made.
+
+    The CEX commitments are computed ahead, CHAIN_GROUP batches at a time,
+    on a copy of the running totals (plain integer sums of the accounts):
+    the group's after-commitments, and the before-commitment of the first
+    batch made, are one ``hash_chains_fast`` launch.  The state a batch
+    starts from is the one the batch before it ended with, so its
+    before-commitment is that batch's after-commitment."""
     tiers = tiers or C.get_tiers()
     dev = tree.device
     root = tree.root()
-    height = -1
-    # the CEX state a batch starts from is the one the batch before it
-    # ended with: its commitment is the previous after-commitment
-    last_after = None
+    batches = []
     for k in sorted(accounts_by_tier):
         accs = accounts_by_tier[k]
-        ops_per_batch = tiers[k]
-        n_batches = len(accs) // ops_per_batch
-        for b in range(n_batches):
-            height += 1
-            batch = accs[b * ops_per_batch:(b + 1) * ops_per_batch]
-            if height <= start_height:
-                # replay only: carry the running totals past this batch
-                for acc in batch:
-                    _accumulate(cex_assets, acc)
-                continue
+        per = tiers[k]
+        batches += [accs[b * per:(b + 1) * per]
+                    for b in range(len(accs) // per)]
+    # replay only: carry the running totals past the batches already made
+    for batch in batches[:start_height + 1]:
+        for acc in batch:
+            _accumulate(cex_assets, acc)
+    last_after = None
+    for g0 in range(start_height + 1, len(batches), CHAIN_GROUP):
+        group = batches[g0:g0 + CHAIN_GROUP]
+        ahead = _copy_cex(cex_assets)
+        states = [] if last_after else [_cex_elements(ahead)]
+        for batch in group:
+            for acc in batch:
+                _accumulate(ahead, acc)
+            states.append(_cex_elements(ahead))
+        commitments = [fr_to_bytes(v)
+                       for v in pos.hash_chains_fast(states, dev)]
+        if last_after is None:
+            last_after = commitments.pop(0)
+        for height, batch, after in zip(range(g0, g0 + len(group)), group,
+                                        commitments):
             wit = BatchCreateUserWitness(
                 account_tree_root=root,
-                before_cex_assets_commitment=(
-                    last_after or _cex_commitment_bytes(cex_assets, dev)),
+                before_cex_assets_commitment=last_after,
                 before_cex_assets=_copy_cex(cex_assets))
             proofs = tree.get_proofs_batch([a.account_index for a in batch])
             for acc, proof in zip(batch, proofs):
@@ -162,8 +180,7 @@ def generate_batch_witnesses(tree: AccountTree,
                     account_proof=proof))
             wit.min_account_index = wit.create_user_ops[0].account_index
             wit.max_account_index = wit.create_user_ops[-1].account_index
-            wit.after_cex_assets_commitment = last_after = (
-                _cex_commitment_bytes(cex_assets, dev))
+            wit.after_cex_assets_commitment = last_after = after
             wit.batch_commitment = fr_to_bytes(poseidon([
                 fr_from_bytes(wit.account_tree_root),
                 fr_from_bytes(wit.before_cex_assets_commitment),
