@@ -20,10 +20,12 @@ Phases, in order; any failure exits non-zero:
      kernels and one NTT over the 2^21 domain, the CSR evaluation of the
      path's A matrix at its witness, G1/G2 adds over as many pairs as
      setup adds (identity, equal and negated pairs included), and the
-     segmented scan over the path's own MSM streams (the 30.8 M-point G1
-     witness stream in full; the 33.6 M-point G1 H stream and the 42.3
-     M-point G2 stream on head-aligned slices); each kernel timed with
-     CUDA events beside its plain version and its bound;
+     segmented scan and segment sums over the path's own MSM streams (the
+     30.8 M-point G1 witness stream in full; the 33.6 M-point G1 H stream
+     and the 42.3 M-point G2 stream on head-aligned slices), and over
+     streams of one segment and of all heads (2^22 G2, 2^24 G1 points);
+     each kernel timed with CUDA events beside its plain version and its
+     bound (the work its inputs need);
   6. the tree path: a depth-28 account tree over 2^27 random leaves made
      on the card, built level by level with the sparse Poseidon kernel,
      its whole first level held against the plain-schedule kernel, 64
@@ -84,6 +86,8 @@ REPLACES = {
     "g2_add": "zkpos_tpu/ops/ec_pallas.py:243",
     "seg_scan_g1": "zkpos_tpu/ops/ec_pallas.py:268",
     "seg_scan_g2": "zkpos_tpu/ops/ec_pallas.py:268",
+    "seg_sums_g1": "zkpos_tpu/ops/ec_pallas.py:268",
+    "seg_sums_g2": "zkpos_tpu/ops/ec_pallas.py:268",
     "ff_mul": "zkpos_tpu/ops/fd32.py:300 (XLA, no Pallas kernel)",
     "ff_add": "zkpos_tpu/ops/fd32.py:300 (XLA, no Pallas kernel)",
     "ff_sub": "zkpos_tpu/ops/fd32.py:300 (XLA, no Pallas kernel)",
@@ -105,12 +109,15 @@ SOURCES = {
     "g1_add": "zkpos_tpu_torch/csrc/ec_add.cu",
     "g2_add": "zkpos_tpu_torch/csrc/ec_add.cu",
     "seg_scan_g1": "zkpos_tpu_torch/csrc/seg_scan.cu",
-    "seg_scan_g2": "zkpos_tpu_torch/csrc/seg_scan.cu",
+    "seg_scan_g2": "zkpos_tpu_torch/csrc/seg_scan_g2.cu",
+    "seg_sums_g1": "zkpos_tpu_torch/csrc/seg_scan.cu",
+    "seg_sums_g2": "zkpos_tpu_torch/csrc/seg_scan_g2.cu",
 }
 POSEIDON_SOURCE = "zkpos_tpu_torch/csrc/poseidon.cu"
 # the kernels each path must launch
-PR1_KERNELS = ("g1_add", "g2_add", "seg_scan_g1", "seg_scan_g2", "ff_mul",
-               "ff_add", "ff_sub", "ff_pow", "ntt_stage", "csr_eval")
+PR1_KERNELS = ("g1_add", "g2_add", "seg_scan_g1", "seg_scan_g2",
+               "seg_sums_g1", "seg_sums_g2", "ff_mul", "ff_add", "ff_sub",
+               "ff_pow", "ntt_stage", "csr_eval")
 PATH_KERNELS = {
     "prove": PR1_KERNELS + ("poseidon_sparse3", "poseidon_plain_t6",
                             "poseidon_plain_t17", "poseidon_chain"),
@@ -186,27 +193,6 @@ def negate(pts):
     for y in ys:
         zero = F.const(0, F.FP, pts.device, mont=False)
         out[:, y] = F.plain_sub(zero, pts[:, y].contiguous(), F.FP)
-    return out
-
-
-def canonical(pts):
-    """Affine coordinates in Montgomery form (identity -> zeros), with the
-    card's Fp kernels: the canonical value of each projective point."""
-    from zkpos_tpu_torch.ops import field as F
-    na = pts.shape[1]
-    c = lambda k: pts[:, k].contiguous()
-    if na == 3:
-        zi = F.inverse(c(2), F.FP)
-        return [F.mul(c(0), zi, F.FP), F.mul(c(1), zi, F.FP)]
-    z0, z1 = c(4), c(5)
-    norm = F.add(F.mul(z0, z0, F.FP), F.mul(z1, z1, F.FP), F.FP)
-    ni = F.inverse(norm, F.FP)
-    zero = F.const(0, F.FP, pts.device, mont=False)
-    a0, a1 = F.mul(z0, ni, F.FP), F.sub(zero, F.mul(z1, ni, F.FP), F.FP)
-    out = []
-    for x0, x1 in ((c(0), c(1)), (c(2), c(3))):
-        out.append(F.sub(F.mul(x0, a0, F.FP), F.mul(x1, a1, F.FP), F.FP))
-        out.append(F.add(F.mul(x0, a1, F.FP), F.mul(x1, a0, F.FP), F.FP))
     return out
 
 
@@ -423,17 +409,26 @@ def timed(fn):
     return out, s.elapsed_time(e)
 
 
-def plain_scan_slices(pts, heads, out, slices, chunk):
+def plain_scan_slices(pts, heads, out, slices, chunk, sums=None):
     """The plain scan over each [a, b) of `slices` (a must be a head: a
     scan restarted at a head does not depend on what came before), run in
     chunks of `chunk` elements with the running point carried from one
     chunk into the next, each chunk compared canonically with the same
-    rows of the kernel's output `out`.  Returns (max_abs_err, plain ms,
-    elements scanned)."""
+    rows of the kernel's scan `out` and, at each segment end in the chunk,
+    with that segment's row of the kernel's segment sums `sums` (when
+    given).  Returns (max_abs_err, plain ms, elements scanned)."""
+    import torch
     from zkpos_tpu_torch.ops import ec
+    if sums is not None:
+        first = heads.bool().clone()
+        first[0] = True
+        rank = torch.cumsum(first, 0) - 1        # each element's segment
+        del first
+        end = torch.ones_like(heads, dtype=torch.bool)
+        end[:-1] = heads[1:].bool()
     err, ms, n = 0, 0.0, 0
     for a, b in slices:
-        if not bool(heads[a]):
+        if not bool(heads[a]) and a != 0:
             fail(f"scan slice start {a} is not a head")
         carry = None
         for c0 in range(a, b, chunk):
@@ -445,11 +440,26 @@ def plain_scan_slices(pts, heads, out, slices, chunk):
             y, t = timed(lambda: ec.plain_seg_scan(x, h))
             ms += t
             carry = y[-1:].contiguous()
-            err = max(err, max_abs_err(canonical(out[c0:c1].contiguous()),
-                                       canonical(y)))
+            err = max(err, max_abs_err(
+                ec.canonical(out[c0:c1].contiguous()), ec.canonical(y)))
+            if sums is not None:
+                e = end[c0:c1].nonzero().flatten()
+                if e.numel():
+                    err = max(err, max_abs_err(
+                        ec.canonical(sums[rank[c0 + e]].contiguous()),
+                        ec.canonical(y[e].contiguous())))
             del x, h, y
         n += b - a
     return err, ms, n
+
+
+def canonical_err(a, b, chunk=1 << 22):
+    """max_abs_err of the canonical values (affine, ops/ec.canonical on the
+    card's Fp kernels) of two point tensors, chunk by chunk."""
+    from zkpos_tpu_torch.ops import ec
+    return max((max_abs_err(ec.canonical(a[i:i + chunk].contiguous()),
+                            ec.canonical(b[i:i + chunk].contiguous()))
+                for i in range(0, a.shape[0], chunk)), default=0)
 
 
 def scan_slices(heads, W, Np, span):
@@ -499,7 +509,7 @@ def phase_kernels(cs, pk, scs, sizes):
     from zkpos_tpu_torch.crypto import bn254 as bn
     from zkpos_tpu_torch.ops import ec, field as F, msm_device as md
     from zkpos_tpu_torch.groth16 import ntt_device as nd, qap_device as qd
-    from zkpos_tpu_torch.probes.probe_segscan import point_pool, stage_adds
+    from zkpos_tpu_torch.probes.probe_segscan import point_pool
     gen = torch.Generator().manual_seed(3)
     rows = []
 
@@ -601,50 +611,112 @@ def phase_kernels(cs, pk, scs, sizes):
     # segmented scans over the main path's own MSM streams: G1 over the
     # witness (A, c = 16; digit-0/1 segments of millions) in full, and over
     # H (Z, the longest G1 stream) on head-aligned slices; G2 over the
-    # witness (B, c = 12, the longest stream) on head-aligned slices.  The
-    # kernel is timed on the A and B streams.
+    # witness (B, c = 12, the longest stream) on head-aligned slices.  Both
+    # outputs are checked against the same plain scan (seg_sums at the
+    # segment ends) and timed on the A and B streams.  Bound: one complete
+    # add for each element that is not a head; the scan reads and writes
+    # every point, the sums read every point and write one a segment.
     bases = pk.dev_bases
     h = qd.compute_h_device(cs, zt, d)
     acc = {}
     means = {}
-    for name, base, plan, span, chunk, timed_here in (
-            ("seg_scan_g1", bases["a"], md.ScalarPlan(zt, device="cuda"),
+    for curve, base, plan, span, chunk, timed_here in (
+            ("g1", bases["a"], md.ScalarPlan(zt, device="cuda"),
              None, 1 << 21, True),
-            ("seg_scan_g1", bases["z"], md.ScalarPlan(h, device="cuda"),
+            ("g1", bases["z"], md.ScalarPlan(h, device="cuda"),
              1 << 21, 1 << 21, False),
-            ("seg_scan_g2", bases["b2"],
-             md.ScalarPlan(zt, c=12, device="cuda"), 1 << 20, 1 << 20,
-             True)):
+            ("g2", bases["b2"], md.ScalarPlan(zt, c=12, device="cuda"),
+             1 << 20, 1 << 20, True)):
         pts, heads = md.sorted_stream(plan, base)
         W, Np = plan.W, plan.Np
         del plan
         N, na = pts.shape[0], pts.shape[1]
         k = ec.seg_scan(pts, heads)
+        ks = ec.seg_sums(pts, heads)
         slices = ([(0, N)] if span is None
                   else scan_slices(heads, W, Np, span))
         err, plain_ms, plain_n = plain_scan_slices(pts, heads, k, slices,
-                                                   chunk)
+                                                   chunk, ks)
         del k
-        log(f"check {name} on a stream of {N} (W={W}): slices {slices}, "
-            f"max_abs_err={err}")
-        a = acc.setdefault(name, {"err": 0, "plain_ms": 0.0, "plain_n": 0})
-        a["err"] = max(a["err"], err)
-        a["plain_ms"] += plain_ms
-        a["plain_n"] += plain_n
+        log(f"check seg_scan / seg_sums {curve} on a stream of {N} (W={W}): "
+            f"slices {slices}, max_abs_err={err}")
+        S = ks.shape[0]
         if timed_here:
-            means[name[-2:]] = N / int(heads.sum())
-            a["ms"] = cuda_ms(lambda: ec.seg_scan(pts, heads), reps=2)
-            a["n"] = N
-            a["bytes"] = 2 * na * 32 * N + N
-            a["muls"] = (MONTS_PER_ADD[na] * MULS_PER_MONT
-                         * stage_adds("full", heads))
+            means[curve] = N / S
+            pb = na * 32
+            muls = (N - S) * MONTS_PER_ADD[na] * MULS_PER_MONT
+            again = ec.seg_sums(pts, heads)
+            rerun = canonical_err(again, ks)
+            log(f"seg_sums_{curve} run twice: max_abs_err={rerun}")
+            err = max(err, rerun)
+            del again
+        del ks
+        for mode in ("scan", "sums"):
+            name = f"seg_{mode}_{curve}"
+            a = acc.setdefault(name, {"err": 0, "plain_ms": 0.0,
+                                      "plain_n": 0})
+            a["err"] = max(a["err"], err)
+            a["plain_ms"] += plain_ms
+            a["plain_n"] += plain_n
+            if timed_here:
+                fn = ec.seg_scan if mode == "scan" else ec.seg_sums
+                a["ms"] = cuda_ms(lambda: fn(pts, heads), reps=3)
+                a["n"] = N
+                a["bytes"] = (2 * pb * N if mode == "scan"
+                              else pb * N + pb * S) + N
+                a["muls"] = muls
         del pts, heads
         torch.cuda.empty_cache()
+    adversarial = phase_scan_adversarial()
+    from zkpos_tpu_torch.probes.common import kernel_resources
     for name, a in acc.items():
-        row(name, a["err"], a["ms"], a["n"], a["plain_ms"], a["plain_n"],
-            a["bytes"], a["muls"])
+        r = make_row(name, max(a["err"], adversarial[name]), a["ms"], a["n"],
+                     a["plain_ms"], a["plain_n"], a["bytes"], a["muls"])
+        kname = "k_" + name              # as mangled: length, then name
+        r["ptxas"] = next(iter(kernel_resources(
+            f"{len(kname)}{kname}").values()), None)
+        r["adversarial_max_abs_err"] = adversarial[name]
+        rows.append(r)
     log(json.dumps({"scan_segment_mean": means}))
     return rows, means
+
+
+def phase_scan_adversarial():
+    """The scans on the streams that stress the look-back: a 2^22-point G2
+    and a 2^24-point G1 stream of one segment each (a chain through every
+    tile; both outputs against the chunked plain scan and its sum), and the
+    same streams with every element a head (both outputs equal to the
+    input).  Returns {kernel name: max_abs_err}."""
+    import torch
+    from zkpos_tpu_torch.ops import ec
+    from zkpos_tpu_torch.probes.probe_segscan import point_pool
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    errs = {}
+    for curve, log_n in (("g2", 22), ("g1", 24)):
+        n = 1 << log_n
+        pool = point_pool(curve, 16, 17, "cuda")
+        pts = pool[torch.randint(0, pool.shape[0], (n,), generator=gen,
+                                 device="cuda")].contiguous()
+        one = torch.zeros(n, dtype=torch.bool, device="cuda")
+        (k, ks), ms = timed(lambda: (ec.seg_scan(pts, one),
+                                     ec.seg_sums(pts, one)))
+        err, plain_ms, _ = plain_scan_slices(pts, one, k, [(0, n)], 1 << 21,
+                                             ks)
+        del k, ks
+        every = torch.ones(n, dtype=torch.bool, device="cuda")
+        e_scan = canonical_err(ec.seg_scan(pts, every), pts)
+        e_sums = canonical_err(ec.seg_sums(pts, every), pts)
+        log(json.dumps({"scan_adversarial": {
+            "curve": curve, "n": n, "one_segment_max_abs_err": err,
+            "one_segment_ms_both": round(ms, 3),
+            "plain_ms": round(plain_ms, 3),
+            "all_heads_max_abs_err": {"scan": e_scan, "sums": e_sums}}}))
+        errs[f"seg_scan_{curve}"] = max(err, e_scan)
+        errs[f"seg_sums_{curve}"] = max(err, e_sums)
+        del pts, one, every, pool
+        torch.cuda.empty_cache()
+    return errs
 
 
 # --- the tree and witness-service paths, and the Poseidon kernels ------------
@@ -1028,7 +1100,7 @@ def phase_poseidon_kernels(tree, inputs):
 
 ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_rel_err", "tol", "ms", "n", "plain_ms", "plain_n",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "ptxas")
 
 
 def probe_row(r):
@@ -1044,7 +1116,8 @@ def probe_row(r):
     if (r["max_abs_err"] != 0 if tol is None else not
             r["max_rel_err"] <= tol):
         fail(f"{r['name']} disagrees with its plain version")
-    for k in ("full_equals_main_kernel", "cios_equals_reduce_of_product"):
+    for k in ("full_equals_main_kernel", "cios_equals_reduce_of_product",
+              "equals_seg_sums"):
         if r.get(k) is False:
             fail(f"{r['name']}: {k} is false")
     return {k: r[k] for k in ROW_KEYS if k in r}
@@ -1155,6 +1228,17 @@ def main():
     cp["latency_probe_ns"] = round(lat_ms * 1e6 / latency.STEPS, 2)
     cp["latency_share"] = round(cp["latency_probe_ns"] / cp["ns_per_mont"], 4)
     log(json.dumps({"chain_critical_path": cp}))
+    # the single-pass segment sums on the prove's streams beside the
+    # three-pass scan they replaced (the probes' stage 8) on streams of the
+    # same sizes
+    cmp = {}
+    for curve in ("g1", "g2"):
+        k = next(r for r in rows if r["name"] == f"seg_sums_{curve}")
+        f = next(r for r in rows if r["name"] == f"scan_full_{curve}")
+        cmp[curve] = {"seg_sums_ms": k["ms"], "n": k["n"],
+                      "three_pass_ms": f["ms"], "three_pass_n": f["n"],
+                      "three_pass_over_seg_sums": round(f["ms"] / k["ms"], 3)}
+    log(json.dumps({"seg_sums_vs_three_pass": cmp}))
     log(f"probes path done at {time.time() - t_all:.1f} s")
     for r in rows:
         by_path = {p_: n for p_, c in launches.items()

@@ -1,7 +1,8 @@
 """The port's point add and segmented scan (zkpos_tpu_torch/ops/ec.py, the
-plain versions of csrc/ec_add.cu and csrc/seg_scan.cu) against the JAX
-package's CPU path (zkpos_tpu/ops/msm_device.py: _padd, _seg_scan_hs)
-and the bn254 host oracle.  Exact: affine points compared with ==.
+plain versions of csrc/ec_add.cu and csrc/seg_scan.cu: seg_scan and
+seg_sums) against the JAX package's CPU path (zkpos_tpu/ops/msm_device.py:
+_padd, _seg_scan_hs) and the bn254 host oracle.  Exact: affine points
+compared with ==.
 """
 import numpy as np
 import pytest
@@ -102,3 +103,33 @@ def test_seg_scan_matches_jax_hs(curve, L):
         want.append(acc)
     assert _same(port, want)
     assert _same(jax_out, want)
+
+
+@pytest.mark.parametrize("curve,L", [("g1", 40), ("g2", 20)])
+def test_seg_sums_matches_jax_hs_at_ends(curve, L):
+    """Each segment's sum, in stream order: the JAX scan read at the
+    segment ends.  Identity points inside segments, a segment of one
+    element, a head on the last element, and no head at position 0 (the
+    stream start counts as one)."""
+    import jax.numpy as jnp
+    _, _, add, _, na, _, _ = CURVES[curve]
+    P = _points(curve, 4, 16) + [None, None]
+    rng = np.random.default_rng(17)
+    pts = [P[i] for i in rng.integers(0, len(P), L)]
+    heads = np.zeros(L, dtype=bool)
+    heads[[3, 4, 9, L - 1]] = True
+    port = ec.to_affine(ec.seg_sums(_to_port(curve, pts),
+                                    torch.from_numpy(heads)))
+    arrs = tuple(a.reshape(34, L) for a in _jax_arrs(curve, pts))
+    _, jout = jmd._seg_scan_hs(na, jnp.asarray(heads), arrs, axis=1)
+    ends = [i for i in range(L) if i == L - 1 or heads[i + 1]]
+    jax_out = [_jax_affine(curve, jout)[i] for i in ends]
+    want, acc = [], None
+    for i, (p, h) in enumerate(zip(pts, heads)):
+        acc = p if (h or i == 0) else add(acc, p)
+        if i in ends:
+            want.append(acc)
+    assert len(port) == 5
+    assert _same(port, want)
+    assert _same(jax_out, want)
+

@@ -11,7 +11,10 @@ port's wrappers upload;
 and the probes' device functions (csrc/probes.cuh: instruction-rate
 bodies, the digit convolutions, the product's stages, the Poseidon
 ablations and the scan's passes under both combines) against their plain
-versions in zkpos_tpu_torch/probes.  Skips without g++."""
+versions in zkpos_tpu_torch/probes; and the single-pass scan of
+csrc/seg_scan.cuh (its lane pass, lane scan, carries and count look-back,
+run tile by tile at a few lanes a tile) against ops/ec.plain_seg_scan /
+plain_seg_sums on the streams that stress its tiles.  Skips without g++."""
 import ctypes
 import os
 import shutil
@@ -23,6 +26,7 @@ import torch
 
 from zkpos_tpu.crypto import bn254 as bn
 from zkpos_tpu.crypto.poseidon_ref import permutation, poseidon
+from zkpos_tpu_torch.ops import ec as tec
 from zkpos_tpu_torch.ops import poseidon as tpos
 from zkpos_tpu_torch.ops import poseidon_sparse as tsparse
 from zkpos_tpu_torch.probes import debug_product as pprod
@@ -62,6 +66,9 @@ def harness(tmp_path_factory):
     L.rh_probe_latency.argtypes = [V, V, V, LG, I]
     L.rh_probe_split.argtypes = [I, V, V, V, V, LG]
     L.rh_probe_scan.argtypes = [I, I, I, V, V, V, LG, I]
+    L.rh_seg.argtypes = [I, I, I, I, I, I, V, V, V, LG]
+    L.rh_fold_counts.argtypes = [V, I, V]
+    L.rh_fold_points.argtypes = [V, V, V, I, V]
     return L
 
 
@@ -286,3 +293,91 @@ def test_probe_scan_passes(harness, curve, stage):
                           int(stage != "local"), pts.data_ptr(),
                           heads.data_ptr(), out.data_ptr(), n, pscan.K)
     assert torch.equal(out, pscan.plain_stage(stage, pts, heads)[0])
+
+
+# --- the single-pass scan (csrc/seg_scan.cuh) -------------------------------
+
+SEG_LANES, SEG_K = 3, 4                    # a tile of 12 elements here
+SEG_TILE = SEG_LANES * SEG_K
+SEG_STREAMS = {                            # kind: (n, head positions)
+    "one_segment": (61, []),
+    "all_heads": (30, "all"),
+    "tile_starts": (36, list(range(0, 36, SEG_TILE))),
+    "last_element": (29, [7, 28]),
+    "single_element": (1, []),
+    "ragged": (43, [3, 4, 11, 13, 24, 25, 26, 35]),
+}
+
+
+def _seg_stream(curve, kind):
+    n, at = SEG_STREAMS[kind]
+    gen, mul = ((bn.G1_GEN, bn.g1_mul) if curve == "g1"
+                else (bn.G2_GEN, bn.g2_mul))
+    rng = np.random.default_rng(len(kind) + n)
+    pool = [mul(gen, int(k)) for k in rng.integers(1, 1 << 30, 4)] + [None]
+    pts = tec.from_affine([pool[i] for i in rng.integers(0, len(pool), n)],
+                          curve)
+    heads = torch.zeros(n, dtype=torch.uint8)
+    heads[list(range(n)) if at == "all" else at] = 1
+    return pts, heads
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+@pytest.mark.parametrize("kind", list(SEG_STREAMS))
+def test_seg_scan_tiles(harness, curve, kind):
+    """Both outputs against the plain versions, by affine value: the
+    kernel adds in another order, so projective limbs differ."""
+    pts, heads = _seg_stream(curve, kind)
+    n = pts.shape[0]
+    for sums, plain in ((0, tec.plain_seg_scan), (1, tec.plain_seg_sums)):
+        want = plain(pts, heads)
+        for tpc in (1, 2):                 # tiles a chunk
+            out = torch.zeros_like(want)
+            assert harness.rh_seg(pts.shape[1], sums, SEG_LANES, SEG_K, tpc,
+                                  2, pts.data_ptr(), heads.data_ptr(),
+                                  out.data_ptr(), n) == 0
+            assert tec.to_affine(out) == tec.to_affine(want)
+
+
+@pytest.mark.parametrize("words,excl,done", [
+    ([(1, 3), (1, 5), (2, 100), (1, 7)], 108, 1),   # stops at the prefix
+    ([(2, 9), (1, 5)], 9, 1),
+    ([(1, 1), (1, 2), (1, 4)], 7, 0),               # aggregates only
+])
+def test_seg_fold_counts(harness, words, excl, done):
+    """The count look-back's fold over tiles that have published their own
+    count only (1) or their inclusive count (2), nearest first."""
+    w = np.array([(k << 62) | c for k, c in words], dtype=np.uint64)
+    out = np.zeros(1, dtype=np.uint64)
+    assert harness.rh_fold_counts(w.ctypes.data, len(words),
+                                  out.ctypes.data) == done
+    assert int(out[0]) == excl
+
+
+@pytest.mark.parametrize("status,done", [
+    ([1, 1, 3, 1], True),      # two aggregates, then an inclusive prefix
+    ([1, 2], True),            # an aggregate, then a prefix with a head
+    ([3], True),
+    ([1, 1], False),           # aggregates only
+])
+def test_seg_fold_points(harness, status, done):
+    """The point look-back's fold over chunks that have published their
+    aggregate (1), their aggregate with a head (2) or their inclusive
+    prefix (3), nearest first: the prefix is the first non-aggregate's
+    point plus the aggregates after it, in stream order."""
+    rng = np.random.default_rng(len(status))
+    m = len(status)
+    agg = [bn.g1_mul(bn.G1_GEN, int(k)) for k in rng.integers(1, 1 << 30, m)]
+    inc = [bn.g1_mul(bn.G1_GEN, int(k)) for k in rng.integers(1, 1 << 30, m)]
+    x = torch.zeros((1, 3, 8), dtype=torch.int32)
+    a, b = tec.from_affine(agg, "g1"), tec.from_affine(inc, "g1")
+    st = np.array(status, dtype=np.uint32)
+    assert harness.rh_fold_points(st.ctypes.data, a.data_ptr(), b.data_ptr(),
+                                  m, x.data_ptr()) == int(done)
+    if done:
+        k = next(i for i, s in enumerate(status) if s != 1)
+        want = inc[k] if status[k] == 3 else agg[k]
+        for i in range(k - 1, -1, -1):
+            want = bn.g1_add(want, agg[i])
+        assert tec.to_affine(x) == [want]
+

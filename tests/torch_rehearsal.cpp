@@ -6,6 +6,7 @@
 #include "ec.cuh"
 #include "poseidon.cuh"
 #include "probes.cuh"
+#include "seg_scan.cuh"
 
 #include <condition_variable>
 #include <mutex>
@@ -167,6 +168,147 @@ void sparse3_rows(const uint32_t* a, const uint32_t* b, const uint32_t* K,
   }
 }
 
+// The kernel of seg_scan.cuh on the host, with its pieces in its order:
+// chunks of `tpc` tiles of `lanes` x K elements (one warp a chunk, 32 x K a
+// tile, on the card).  Every chunk publishes its head count first; the
+// count look-backs then run last chunk first, over windows of `window`
+// words, so that each folds the aggregate-only words of all the chunks
+// before it.  Then each chunk's tiles in order (the lanes' passes, their
+// scan, their carries, the running prefix), each chunk publishing its
+// point; last, the point look-backs, even chunks before odd ones, so that
+// they meet aggregates, prefixes with a head and inclusive prefixes.
+template <class E>
+void seg_host(int sums, int lanes, int K, int tpc, int window,
+              const uint32_t* in, const uint8_t* heads, uint32_t* out,
+              long n) {
+  using namespace scan;
+  const int W = Layout<E>::NA * 8;
+  const InlineAdd add;
+  const long tile = (long)lanes * K, T = (n + tile - 1) / tile;
+  const long C = (T + tpc - 1) / tpc, chunk = tile * tpc;
+  auto head = [&](long i) { return i == 0 || heads[i] != 0; };
+  std::vector<uint64_t> cnt(C), own(C, 0), before(C, 0);
+  for (long c = 0; c < C; ++c) {
+    for (long i = c * chunk; i < n && i < (c + 1) * chunk; ++i) own[c] += head(i);
+    cnt[c] = (c == 0 ? kCntIncl : kCntAgg) | own[c];
+  }
+  for (long c = C - 1; c > 0; --c) {
+    uint64_t excl = 0;
+    for (long top = c - 1;; top -= window) {
+      auto word = [&](int k) { return top - k >= 0 ? cnt[top - k] : kCntIncl; };
+      if (fold_counts(word, window, excl)) break;
+    }
+    before[c] = excl;
+    cnt[c] = kCntIncl | (excl + own[c]);
+  }
+  std::vector<Point<E>> agg(C), incl(C);
+  std::vector<uint32_t> pst(C, 0);
+  std::vector<char> chunk_head(C, 0);
+  std::vector<long long> deferred(C, -1);
+  std::vector<long> first_head(C);
+  std::vector<Point<E>> waiting(C * tpc * lanes);   // seg_scan
+  for (long c = 0; c < C; ++c) {
+    const long c0 = c * chunk, c1 = c0 + chunk < n ? c0 + chunk : n;
+    long long seen = (long long)before[c];
+    Point<E> run = {};
+    bool has_run = false, hd = false;
+    first_head[c] = c1;
+    for (long t0 = c0; t0 < c1; t0 += tile) {
+      std::vector<Point<E>> buf[2] = {std::vector<Point<E>>(lanes),
+                                      std::vector<Point<E>>(lanes)};
+      std::vector<uint32_t> fb[2] = {std::vector<uint32_t>(lanes),
+                                     std::vector<uint32_t>(lanes)};
+      std::vector<Run<E>> runs(lanes);
+      std::vector<long long> base(lanes);
+      std::vector<char> open_sum(lanes, 0);
+      for (int l = 0; l < lanes; ++l) {
+        const long s = t0 + (long)l * K, e = s + K < n ? s + K : n;
+        Run<E>& r = runs[l];
+        r = Run<E>{};
+        base[l] = seen;
+        r.idx = seen - 1;
+        char& opened = open_sum[l];
+        auto emit = [&](const Run<E>& x) {
+          if (sums) {
+            store_point(out + W * x.idx, x.acc);
+            opened |= x.open != 0;
+          }
+        };
+        for (long i = s; i < e; ++i) {
+          const Point<E> p = load_point<E>(in + W * i);
+          if (i == s) run_first(r, p, head(i), seen);
+          else run_take(r, p, head(i), emit);
+          if (!sums) store_point(out + W * i, r.acc);
+          if (!hd && head(i) && i < first_head[c]) first_head[c] = i;
+        }
+        if (s < n && (e >= n || head(e))) emit(r);
+        for (long i = s; i < e; ++i) seen += head(i);
+        buf[0][l] = r.acc;
+        fb[0][l] = (s >= n || !r.open) ? 1u : 0u;
+      }
+      int cur = 0;
+      for (int d = 1; d < lanes; d <<= 1, cur ^= 1)
+        for (int l = 0; l < lanes; ++l)
+          hs_round(l, d, buf[cur].data(), fb[cur].data(), buf[cur ^ 1].data(),
+                   fb[cur ^ 1].data(), add);
+      const Point<E>* span = buf[cur].data();
+      const uint32_t* sf = fb[cur].data();
+      for (int l = 0; l < lanes; ++l) {
+        const long s = t0 + (long)l * K;
+        const bool done = hd || (l > 0 && sf[l - 1]);
+        Point<E> cy;
+        if (sums ? !open_sum[l] : !runs[l].pre) continue;
+        const bool has = lane_carry(cy, l, span, sf, run, has_run, add);
+        if (sums) {
+          uint32_t* o = out + W * (base[l] - 1);
+          if (has) store_point(o, padd(cy, load_point<E>(o)));
+          if (!done) deferred[c] = base[l] - 1;
+        } else if (has && !done) {
+          waiting[(t0 - c0) / tile * lanes + l + c * tpc * lanes] = cy;
+        } else if (has) {
+          for (uint32_t j = 0; j < runs[l].pre; ++j)
+            store_point(out + W * (s + j),
+                        padd(cy, load_point<E>(out + W * (s + j))));
+        }
+      }
+      run_extend(run, has_run, hd, span[lanes - 1], sf[lanes - 1] != 0, add);
+    }
+    agg[c] = run;
+    chunk_head[c] = hd;
+    pst[c] = hd ? kPtHead : kPtAgg;
+  }
+  for (int parity = 0; parity < 2; ++parity)
+    for (long c = parity; c < C; c += 2) {
+      if (head(c * chunk)) continue;
+      Point<E> x, sfx;
+      bool has_s = false;
+      for (long j = c - 1;; --j) {
+        if (j < 0 || !pst[j]) throw 1;   // nothing published before it
+        if (fold_point(pst[j], agg[j], incl[j], sfx, has_s, x, add)) break;
+      }
+      if (!chunk_head[c]) {
+        add(incl[c], x, agg[c]);
+        pst[c] = kPtIncl;
+      }
+      if (sums && deferred[c] >= 0) {
+        uint32_t* o = out + W * deferred[c];
+        store_point(o, padd(x, load_point<E>(o)));
+      }
+      if (!sums)
+        for (long t0 = c * chunk; t0 < first_head[c]; t0 += tile)
+          for (int l = 0; l < lanes; ++l) {
+            const long s = t0 + (long)l * K;
+            const long e = s + K < first_head[c] ? s + K : first_head[c];
+            Point<E> cx = x;
+            if (s < e && (t0 != c * chunk || l != 0))
+              add(cx, x, waiting[(t0 - c * chunk) / tile * lanes + l +
+                                 c * tpc * lanes]);
+            for (long i = s; i < e; ++i)
+              store_point(out + W * i, padd(cx, load_point<E>(out + W * i)));
+          }
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -324,6 +466,43 @@ void rh_probe_scan(int na, int comb, int recurse, const uint32_t* in,
                    const uint8_t* heads, uint32_t* out, long n, int K) {
   if (na == 3) scan_stage<Fp1>(comb, recurse, in, heads, out, n, K);
   else scan_stage<Fp2>(comb, recurse, in, heads, out, n, K);
+}
+
+// seg_scan.cuh on the host (seg_host): sums = 1 for seg_sums, 0 for
+// seg_scan; returns 1 if a look-back found nothing published before it
+int rh_seg(int na, int sums, int lanes, int K, int tpc, int window,
+           const uint32_t* in, const uint8_t* heads, uint32_t* out, long n) {
+  try {
+    if (na == 3) seg_host<Fp1>(sums, lanes, K, tpc, window, in, heads, out, n);
+    else seg_host<Fp2>(sums, lanes, K, tpc, window, in, heads, out, n);
+  } catch (int) {
+    return 1;
+  }
+  return 0;
+}
+
+// scan::fold_counts over m words, nearest first; returns whether it
+// reached an inclusive word, the fold in *excl
+int rh_fold_counts(const uint64_t* words, int m, uint64_t* excl) {
+  auto word = [&](int k) { return words[k]; };
+  return scan::fold_counts(word, m, *excl) ? 1 : 0;
+}
+
+// scan::fold_point over m G1 predecessors, nearest first (status, their
+// aggregate and inclusive points); returns whether the prefix is complete,
+// the prefix in *x
+int rh_fold_points(const uint32_t* status, const uint32_t* agg,
+                   const uint32_t* incl, int m, uint32_t* x) {
+  const scan::InlineAdd add;
+  Point<Fp1> s, px;
+  bool has_s = false;
+  for (int i = 0; i < m; ++i)
+    if (scan::fold_point(status[i], load_point<Fp1>(agg + 24 * i),
+                         load_point<Fp1>(incl + 24 * i), s, has_s, px, add)) {
+      store_point(x, px);
+      return 1;
+    }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,123 +1,77 @@
-// Inclusive segmented EC-sum scan over a flat point stream, G1 and G2:
-// out[i] = sum of in[h..i] where h is the last index <= i whose head flag
-// is set (the stream start counts as a head).
+// Inclusive segmented EC-sum scan over a flat point stream, G1 and G2, in
+// one kernel launch a call, with two outputs:
+//   zk_seg_scan: out[i] = sum of in[h..i], h the last head at or before i;
+//   zk_seg_sums: out[s] = the sum of segment s (the scan at its last
+//                element), in stream order;
+// the stream start counts as a head either way.
 //
 // Replaces zkpos_tpu/ops/ec_pallas.py:_seg_scan_kernel (seg_scan_pallas),
 // which the TPU MSM uses for bucket accumulation and for the bucket fold.
-//
 // The TPU kernel carries the running point from one tile to the next in
 // VMEM scratch across a sequential grid.  H100 blocks run in no order, so
-// the carry becomes a multi-pass scan, each pass a kernel here:
-//   1. k_scan_local: each thread scans K consecutive elements serially and
-//      writes its aggregate and whether its range held a head;
-//   2. the aggregates are scanned the same way with those flags as heads
-//      (the caller recurses until one thread covers everything);
-//   3. k_scan_fixup: each thread adds the scanned aggregate of the thread
-//      before it to its elements that precede its first head.
-// No assumption is made on segment length: witness scalars are
-// duplicate-heavy, so one bucket can span millions of entries and many
-// threads, which the flags and the recursion carry across.
+// each warp carries it across a chunk of tiles and a decoupled look-back
+// carries it from chunk to chunk (seg_scan.cuh).
 //
-// Bound on the H100: at most two complete adds per element (one in pass 1,
-// one in the fix-up), each 3,696 (G1) or 11,088 (G2) 32-bit multiplies
-// against 2 x 96 (G1) or 2 x 192 (G2) bytes of traffic, so the scan is
-// bounded by integer multiply throughput.  The design keeps the
-// running sum in registers, spends no adds on a Hillis-Steele tree
-// (log2(T)+1 adds per entry on the TPU), and keeps the extra work of the
-// carry passes at 1/K of the stream.
+// Bound on the H100: one complete add for each element that is not a head
+// -- 3,696 (G1) or 11,088 (G2) 32-bit multiplies against 96 or 192 bytes
+// read -- so the scan is bounded by integer multiply throughput.  The work
+// beyond that: five Hillis-Steele rounds a tile of 32 x 64 elements and at
+// most two adds a lane for its carry; seg_scan adds its carry to each
+// element before the lane's first head (the full scan's inherent second
+// add).  Points move through shared memory in 16-byte pieces, neighbouring
+// threads on neighbouring addresses, and seg_sums writes only segment ends.
+// 32 elements a lane (the probes path's lookback_k32) is slower (PERF.md).
+// A first form, one tile a warp that waited for the tile before when it
+// had no head, chained through every tile of the witness streams' long
+// digit-0 segments: hence chunks of many tiles a warp.
 #include <cuda_runtime.h>
 
-#include "ec.cuh"
+#include "seg_scan.cuh"
 
-using namespace ff;
+using namespace scan;
 
 namespace {
 
-const int kBlock = 128;
+const int kK = 64;        // elements a lane
+const int kWarps = 4;     // warps (chunks) a block
 
-template <class E>
-__global__ void k_scan_local(const uint32_t* in, const uint8_t* heads,
-                             uint32_t* out, uint32_t* agg, uint8_t* agg_flag,
-                             long long n, int K) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long start = t * K;
-  if (start >= n) return;
-  long long end = start + K < n ? start + K : n;
-  const int w = Layout<E>::NA * 8;
-  Point<E> acc = load_point<E>(in + w * start);
-  uint8_t flag = heads[start];
-  store_point(out + w * start, acc);
-  for (long long i = start + 1; i < end; ++i) {
-    Point<E> p = load_point<E>(in + w * i);
-    if (heads[i]) {
-      acc = p;
-      flag = 1;
-    } else {
-      acc = padd(acc, p);
-    }
-    store_point(out + w * i, acc);
-  }
-  store_point(agg + w * t, acc);
-  agg_flag[t] = flag;
-}
-
-template <class E>
-__global__ void k_scan_fixup(uint32_t* out, const uint8_t* heads,
-                             const uint32_t* carry, long long n, int K) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long start = t * K;
-  if (t == 0 || start >= n) return;
-  long long end = start + K < n ? start + K : n;
-  const int w = Layout<E>::NA * 8;
-  Point<E> c = load_point<E>(carry + w * (t - 1));
-  for (long long i = start; i < end && !heads[i]; ++i)
-    store_point(out + w * i, padd(c, load_point<E>(out + w * i)));
-}
-
-inline unsigned grid_for(long long threads) {
-  return (unsigned)((threads + kBlock - 1) / kBlock);
-}
-
-template <class E>
-int local(const void* in, const void* heads, void* out, void* agg,
-          void* agg_flag, long long n, int K, void* stream) {
-  long long threads = (n + K - 1) / K;
-  if (n > 0)
-    k_scan_local<E><<<grid_for(threads), kBlock, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)in, (const uint8_t*)heads, (uint32_t*)out,
-        (uint32_t*)agg, (uint8_t*)agg_flag, n, K);
-  return (int)cudaGetLastError();
-}
-
-template <class E>
-int fixup(void* out, const void* heads, const void* carry, long long n,
-          int K, void* stream) {
-  long long threads = (n + K - 1) / K;
-  if (threads > 1)
-    k_scan_fixup<E><<<grid_for(threads), kBlock, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint8_t*)heads, (const uint32_t*)carry, n, K);
-  return (int)cudaGetLastError();
-}
+__global__ void __launch_bounds__(kWarps * kLanes, 4)
+k_seg_scan_g1(Args a) { seg_kernel_body<Fp1, kScan, kK>(a); }
+__global__ void __launch_bounds__(kWarps * kLanes, 4)
+k_seg_sums_g1(Args a) { seg_kernel_body<Fp1, kSums, kK>(a); }
 
 }  // namespace
 
+// The G2 kernels, in seg_scan_g2.cu so that nvcc builds them beside these.
+int seg_launch_g2(int sums, Args a, void* stream);
+
 extern "C" {
 
-// na = 3 (G1) or 6 (G2).  `agg` holds ceil(n / K) points and `agg_flag`
-// as many bytes.
-int zk_seg_scan_local(int na, const void* in, const void* heads, void* out,
-                      void* agg, void* agg_flag, long long n, int K,
-                      void* stream) {
-  if (na == 3) return local<Fp1>(in, heads, out, agg, agg_flag, n, K, stream);
-  return local<Fp2>(in, heads, out, agg, agg_flag, n, K, stream);
+// Bytes of the scratch buffer a call over n points needs (na = 3 | 6;
+// sums = 1 for zk_seg_sums, 0 for zk_seg_scan).
+long long zk_seg_scratch_bytes(int na, int sums, long long n) {
+  return na == 3 ? scratch_bytes<Fp1>(n, kK, !sums)
+                 : scratch_bytes<Fp2>(n, kK, !sums);
 }
 
-// `carry` holds the inclusive scan of the aggregates written by
-// zk_seg_scan_local over the same stream.
-int zk_seg_scan_fixup(int na, void* out, const void* heads, const void* carry,
-                      long long n, int K, void* stream) {
-  if (na == 3) return fixup<Fp1>(out, heads, carry, n, K, stream);
-  return fixup<Fp2>(out, heads, carry, n, K, stream);
+// in: n points (N, na, 8) int32, 16-byte aligned; heads: n bytes; out: n
+// points; scratch: zk_seg_scratch_bytes(na, 0, n) bytes.
+int zk_seg_scan(int na, const void* in, const void* heads, void* out,
+                void* scratch, long long n, void* stream) {
+  Args a{(const uint32_t*)in, (const uint8_t*)heads, (uint32_t*)out, n,
+         (uint8_t*)scratch};
+  if (na == 3) return launch<Fp1, kScan, kK, kWarps>(k_seg_scan_g1, a, stream);
+  return seg_launch_g2(0, a, stream);
+}
+
+// As zk_seg_scan, but out holds one point a segment: as many as the heads,
+// position 0 counted as one; scratch: zk_seg_scratch_bytes(na, 1, n).
+int zk_seg_sums(int na, const void* in, const void* heads, void* out,
+                void* scratch, long long n, void* stream) {
+  Args a{(const uint32_t*)in, (const uint8_t*)heads, (uint32_t*)out, n,
+         (uint8_t*)scratch};
+  if (na == 3) return launch<Fp1, kSums, kK, kWarps>(k_seg_sums_g1, a, stream);
+  return seg_launch_g2(1, a, stream);
 }
 
 }  // extern "C"

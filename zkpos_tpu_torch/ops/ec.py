@@ -1,6 +1,7 @@
 """G1 / G2 point arithmetic on tensors: the complete add (csrc/ec_add.cu)
-and the inclusive segmented EC-sum scan (csrc/seg_scan.cu), with their
-plain PyTorch versions.
+and the inclusive segmented EC-sum scan (csrc/seg_scan.cu: every position,
+`seg_scan`, or each segment's sum, `seg_sums`), with their plain PyTorch
+versions.
 
 Counterpart of zkpos_tpu/ops/ec_pallas.py (point_add_pallas,
 point_add2_pallas, seg_scan_pallas).  A batch of points is an int32
@@ -8,7 +9,9 @@ tensor of shape (N, 3, 8) for G1 (X, Y, Z over Fp) or (N, 6, 8) for G2
 (x.c0, x.c1, y.c0, y.c1, z.c0, z.c1 over Fp2 = Fp[u]/(u^2 + 1)):
 homogeneous projective coordinates in Montgomery form, identity
 (0 : 1 : 0).  Canonical values are compared through affine host points
-(`to_affine`), never raw limbs against the JAX package.
+(`to_affine`, or `canonical` on the card), never raw limbs: two
+association orders of the same sum give different projective
+representatives of the same point.
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ from ..utils import build
 from . import field as F
 from .field import count_launch
 
-SCAN_K = 16          # stream elements per thread in the scan kernel
 PLAIN_K = 4          # elements per serial step in the plain scan
 
 
@@ -74,6 +76,28 @@ def to_affine(pts: torch.Tensor) -> List[Optional[tuple]]:
                 continue
             zi = z.inv()
             out.append((bn.Fp2(c[0], c[1]) * zi, bn.Fp2(c[2], c[3]) * zi))
+    return out
+
+
+def canonical(pts: torch.Tensor) -> List[torch.Tensor]:
+    """Affine coordinates in Montgomery form (the identity -> zeros), one
+    (N, 8) tensor a coordinate (x, y in G1; x.c0, x.c1, y.c0, y.c1 in G2),
+    by the Fp kernels on the card or their plain versions on the CPU: the
+    canonical value of each projective point, for many points at once."""
+    na = pts.shape[1]
+    c = lambda k: pts[:, k].contiguous()
+    if na == 3:
+        zi = F.inverse(c(2), F.FP)
+        return [F.mul(c(0), zi, F.FP), F.mul(c(1), zi, F.FP)]
+    z0, z1 = c(4), c(5)
+    norm = F.add(F.mul(z0, z0, F.FP), F.mul(z1, z1, F.FP), F.FP)
+    ni = F.inverse(norm, F.FP)
+    zero = F.const(0, F.FP, pts.device, mont=False)
+    a0, a1 = F.mul(z0, ni, F.FP), F.sub(zero, F.mul(z1, ni, F.FP), F.FP)
+    out = []
+    for x0, x1 in ((c(0), c(1)), (c(2), c(3))):
+        out.append(F.sub(F.mul(x0, a0, F.FP), F.mul(x1, a1, F.FP), F.FP))
+        out.append(F.add(F.mul(x0, a1, F.FP), F.mul(x1, a0, F.FP), F.FP))
     return out
 
 
@@ -204,10 +228,9 @@ def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def plain_seg_scan(pts: torch.Tensor, heads: torch.Tensor,
                    K: int = PLAIN_K) -> torch.Tensor:
-    """Inclusive segmented EC-sum scan, the kernel's three passes in
-    PyTorch: K-element serial scans side by side, a recursive scan of the
-    per-block aggregates, and the fix-up of each block's elements before
-    its first head."""
+    """Inclusive segmented EC-sum scan in PyTorch: K-element serial scans
+    side by side, a recursive scan of the per-block aggregates, and the
+    fix-up of each block's elements before its first head."""
     n, na = pts.shape[0], pts.shape[1]
     if n <= 1:
         return pts.clone()
@@ -234,40 +257,62 @@ def plain_seg_scan(pts: torch.Tensor, heads: torch.Tensor,
     return out.reshape(T * K, na, 8)[:n].contiguous()
 
 
-def _scan_cuda(L, na, x, heads, out, K):
-    """The local pass, then (above one thread's worth) the same scan of the
-    aggregates and the fix-up.  Every launch of either kernel is counted
-    under the scan's name."""
-    n = x.shape[0]
-    T = -(-n // K)
-    agg = torch.empty((T, na, 8), dtype=torch.int32, device=x.device)
-    flag = torch.empty((T,), dtype=torch.uint8, device=x.device)
-    s = build.stream_ptr(x)
-    name = "seg_scan_g1" if na == 3 else "seg_scan_g2"
-    build.check(L.zk_seg_scan_local(na, build.ptr(x), build.ptr(heads),
-                                    build.ptr(out), build.ptr(agg),
-                                    build.ptr(flag), n, K, s), "seg_scan")
+def plain_seg_sums(pts: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
+    """Each segment's sum, in stream order: plain_seg_scan at the last
+    element of each segment."""
+    end = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    end[:-1] = heads[1:].bool()
+    return plain_seg_scan(pts, heads)[end].contiguous()
+
+
+def _seg_launch(mode: str, pts: torch.Tensor, heads: torch.Tensor,
+                out: torch.Tensor) -> torch.Tensor:
+    """One launch of the single-pass kernel (csrc/seg_scan.cu), counted as
+    seg_<mode>_<g1|g2>."""
+    na, n = pts.shape[1], pts.shape[0]
+    if pts.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"seg_{mode}: points must be 16-byte aligned")
+    h = (heads.view(torch.uint8) if heads.dtype == torch.bool
+         else heads.to(torch.uint8)).contiguous()
+    L = build.cuda_lib()
+    scratch = torch.empty(L.zk_seg_scratch_bytes(na, int(mode == "sums"), n),
+                          dtype=torch.uint8, device=pts.device)
+    fn = L.zk_seg_scan if mode == "scan" else L.zk_seg_sums
+    name = f"seg_{mode}_{'g1' if na == 3 else 'g2'}"
+    build.check(fn(na, build.ptr(pts), build.ptr(h), build.ptr(out),
+                   build.ptr(scratch), n, build.stream_ptr(pts)), name)
     count_launch(name, n)
-    if T > 1:
-        _scan_cuda(L, na, agg, flag, agg, K)
-        build.check(L.zk_seg_scan_fixup(na, build.ptr(out), build.ptr(heads),
-                                        build.ptr(agg), n, K, s), "seg_scan")
-        count_launch(name, n)
+    return out
+
+
+def _check_scan_args(pts: torch.Tensor, heads: torch.Tensor, what: str):
+    _check_pts(pts)
+    if heads.shape != (pts.shape[0],):
+        raise ValueError("heads must be (N,)")
+    if pts.device.type == "cpu" and heads.device.type == "cpu":
+        return "cpu"
+    if pts.device.type != "cuda" or heads.device != pts.device:
+        raise ValueError(f"{what}: operands must share one CUDA device")
+    return "cuda"
 
 
 def seg_scan(pts: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
     """out[i] = sum of pts[h..i], h the last head at or before i (the
     stream start counts as a head).  heads: (N,) bool or uint8."""
-    _check_pts(pts)
-    if heads.shape != (pts.shape[0],):
-        raise ValueError("heads must be (N,)")
-    if pts.device.type == "cpu":
+    if _check_scan_args(pts, heads, "seg_scan") == "cpu":
         return plain_seg_scan(pts, heads)
-    if pts.device.type != "cuda" or heads.device != pts.device:
-        raise ValueError("seg_scan: operands must share one CUDA device")
-    na = pts.shape[1]
     out = torch.empty_like(pts)
-    if pts.shape[0]:
-        h = heads.to(torch.uint8).contiguous()
-        _scan_cuda(build.cuda_lib(), na, pts, h, out, SCAN_K)
-    return out
+    return _seg_launch("scan", pts, heads, out) if pts.shape[0] else out
+
+
+def seg_sums(pts: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
+    """The sum of each segment, in stream order: (S, na, 8), S the number
+    of heads with the stream start counted as one -- seg_scan read at the
+    segment ends, without the N-point scan."""
+    if _check_scan_args(pts, heads, "seg_sums") == "cpu":
+        return plain_seg_sums(pts, heads)
+    n = pts.shape[0]
+    S = 1 + int(heads[1:].sum()) if n else 0
+    out = torch.empty((S, pts.shape[1], 8), dtype=torch.int32,
+                      device=pts.device)
+    return _seg_launch("sums", pts, heads, out) if n else out

@@ -8,12 +8,13 @@ MSMs and the two commitment MSMs:
      (`ScalarPlan`; the sort is torch.sort);
   2. the bases gathered in sorted order into one flat stream (all windows
      back to back) with a head wherever the digit changes and at every
-     window start, and ONE inclusive segmented EC-sum scan over it
-     (ops/ec.seg_scan); each bucket's sum is the scan at its last entry,
-     found by a binary search per bucket (torch.searchsorted);
+     window start, and ONE segmented EC sum over it (ops/ec.seg_sums):
+     each segment's sum is its bucket's, placed at (window, digit of its
+     head) in the (W, 2^c) bucket grid;
   3. the bucket fold: the suffix sums T_j = sum_{b >= j} S_b as a
-     reversed segmented scan over the (W, 2^c) bucket grid, T_0 replaced
-     by the identity, then a forward scan for sum_{j >= 1} T_j per window;
+     reversed segmented scan over the bucket grid (ops/ec.seg_scan), T_0
+     replaced by the identity, then each window's sum_{j >= 1} T_j
+     (ops/ec.seg_sums, one segment a window);
   4. a W-step Horner with c doublings through the complete add.
 
 The TPU engine cut the stream into 2^21-entry chunks with a per-window
@@ -133,23 +134,20 @@ def _bucket_sums(na: int, plan: ScalarPlan, base: torch.Tensor):
     """(W, 2^c, na, 8) bucket grid: the sum of the base points whose digit
     is b in window w (identity where none)."""
     W, Np, nb = plan.W, plan.Np, 1 << plan.c
-    dev = base.device
     pts, heads = sorted_stream(plan, base)
-    scan = ec.seg_scan(pts, heads)
-    del pts, heads
-    queries = torch.arange(nb, dtype=torch.int32, device=dev).expand(W, nb)
-    pos = torch.searchsorted(plan.dig, queries.contiguous(), right=True) - 1
-    posc = pos.clamp(min=0)
-    valid = (pos >= 0) & (torch.gather(plan.dig, 1, posc) == queries)
-    flat = posc + torch.arange(W, device=dev).unsqueeze(1) * Np
-    dense = scan.index_select(0, flat.reshape(-1)).reshape(W, nb, na, 8)
-    idy = ec.identity(na, 1, dev).reshape(1, 1, na, 8)
-    return torch.where(valid[:, :, None, None], dense, idy)
+    sums = ec.seg_sums(pts, heads)
+    del pts
+    at = heads.nonzero().flatten()            # each segment's head
+    del heads
+    slot = (at // Np) * nb + plan.dig.reshape(-1)[at].long()
+    dense = ec.identity(na, W * nb, base.device)
+    dense[slot] = sums
+    return dense.reshape(W, nb, na, 8)
 
 
 def _fold(na: int, W: int, c: int, dense: torch.Tensor) -> torch.Tensor:
     """Per-window sum_b b * S_b: suffix sums by a reversed segmented scan,
-    then their total by a forward scan.  Returns (W, na, 8)."""
+    then their total by a segmented sum.  Returns (W, na, 8)."""
     nb = 1 << c
     dev = dense.device
     heads = torch.zeros((W, nb), dtype=torch.bool, device=dev)
@@ -159,8 +157,7 @@ def _fold(na: int, W: int, c: int, dense: torch.Tensor) -> torch.Tensor:
     suf = ec.seg_scan(rev, heads).reshape(W, nb, na, 8).flip(1)
     suf = suf.clone()
     suf[:, 0] = ec.identity(na, 1, dev)       # bucket 0 has weight 0
-    tot = ec.seg_scan(suf.reshape(W * nb, na, 8).contiguous(), heads)
-    return tot.reshape(W, nb, na, 8)[:, -1].contiguous()
+    return ec.seg_sums(suf.reshape(W * nb, na, 8).contiguous(), heads)
 
 
 def _horner(na: int, W: int, c: int, rw: torch.Tensor) -> torch.Tensor:

@@ -88,21 +88,27 @@ def max_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def kernel_resources(pattern: str) -> dict:
-    """Registers, stack frame and spill stores of each kernel whose mangled
-    name contains `pattern`, from the ptxas report of the last build."""
-    out, name = {}, None
+    """Registers, stack frame and spill stores and loads of each kernel
+    whose mangled name contains `pattern`, from the ptxas report of the
+    last build."""
+    out, name, props = {}, None, None
     for line in build.PTXAS_LOG.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1) if pattern in m.group(1) else None
             continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
         if name is None:
             continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
-                      line)
-        if m:
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props == name:     # not a function the kernel calls
             out.setdefault(name, {}).update(stack=int(m.group(1)),
-                                            spill_stores=int(m.group(2)))
+                                            spill_stores=int(m.group(2)),
+                                            spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.setdefault(name, {})["registers"] = int(m.group(1))

@@ -4,12 +4,12 @@ Counterpart of scripts/probe_segscan.py:19-192 (``kernel``, stages 1-4:
 the scan's structure with a dummy ``x + part`` combine; ``main6.kern``,
 stages 6-8: the real G1 add core with the carry merge only, one
 Hillis-Steele step, all steps), which cut the TPU's ``_seg_scan_kernel``
-apart to find what its time went to.  The port's scan (csrc/seg_scan.cu,
-ops/ec.seg_scan) is three passes: a serial local pass of K = 16 elements a
-thread, the recursive scan of the per-thread aggregates, and the fix-up.
-The stages here, each run over a whole stream by the kernels of
-csrc/probes.cu (built on ec.cuh's load, store and complete add; seg_scan.cu
-is left as it is):
+apart to find what its time went to.  The port's first scan was three
+passes: a serial local pass of K = 16 elements a thread, the
+recursive scan of the per-thread aggregates, and the fix-up; csrc/seg_scan.cu
+now runs one pass.  The stages here reproduce the three-pass design, each
+run over a whole stream by the kernels of csrc/probes.cu (built on ec.cuh's
+load, store and complete add):
 
 * ``copy``: every point loaded and stored with its head flag in the scan's
   thread mapping, no combine: the byte floor of that mapping;
@@ -17,15 +17,22 @@ is left as it is):
   (TPU stages 1-4);
 * ``local``: the local pass with the real add (stage 6);
 * ``local_agg``: that and the recursive scan of the aggregates (stage 7);
-* ``full``: the whole scan, equal to ops/ec.seg_scan bit for bit (stage 8).
+* ``full``: the whole scan (stage 8): the earlier design of ops/ec.seg_scan,
+  kept as the yardstick of the single-pass kernel that replaced it, and
+  held against it by affine value;
+* ``lookback_k32``: the single-pass segment sums (csrc/seg_scan.cuh, as
+  ops/ec.seg_sums) at 32 elements a lane where csrc/seg_scan.cu takes 64
+  (csrc/probes_scan.cu), held against ops/ec.seg_sums by affine value.
 
 Streams: the prove path's sizes, G1 at 30,795,264 and G2 at 42,343,488
 points (the witness streams of its A and B MSMs), points drawn from a pool
 of valid points, heads from a seeded Bernoulli pattern with the streams'
 mean segment length (SEGMENT_MEAN, which chip_smoke.py measures on the
 path's own streams and passes in).  Bound: complete adds (14 Montgomery
-products in G1, 42 in G2) at the INT32 rate for the adds each stage makes
-on this head pattern, or the stream's bytes.
+products in G1, 42 in G2) at the INT32 rate -- for the whole scan and the
+segment sums the function's own (one for each element that is not a head),
+for the partial stages those the three-pass design makes on this head
+pattern -- or the stream's bytes.
 """
 
 from __future__ import annotations
@@ -41,13 +48,15 @@ from ..utils import build
 from ..utils.device import resolve
 from . import common as C
 
-K = ec.SCAN_K
-STAGES = ("copy", "structure", "local", "local_agg", "full")
+K = 16          # elements a thread in the three-pass design
+STAGES = ("copy", "structure", "local", "local_agg", "full", "lookback_k32")
 REPLACES = {"copy": "scripts/probe_segscan.py:19",
             "structure": "scripts/probe_segscan.py:19",
             "local": "scripts/probe_segscan.py:101",
             "local_agg": "scripts/probe_segscan.py:101",
-            "full": "scripts/probe_segscan.py:101"}
+            "full": "scripts/probe_segscan.py:101",
+            "lookback_k32": "zkpos_tpu/ops/ec_pallas.py:268"}
+SOURCES = {"lookback_k32": "zkpos_tpu_torch/csrc/probes_scan.cu"}
 STREAMS = {"g1": 30_795_264, "g2": 42_343_488}
 # mean segment length of the prove path's A (G1) and B (G2) witness
 # streams, as chip_smoke.py measures them on the card (PERF.md, section 4)
@@ -105,6 +114,8 @@ def plain_stage(stage: str, pts: torch.Tensor, heads: torch.Tensor):
         return _wrap_scan(pts, heads), None
     if stage == "full":
         return ec.plain_seg_scan(pts, heads, K), None
+    if stage == "lookback_k32":
+        return ec.plain_seg_sums(pts, heads), None
     out = ec.plain_seg_scan(pts, _local_heads(heads), K)
     if stage == "local":
         return out, None
@@ -172,6 +183,16 @@ def scan_stage(stage: str, pts: torch.Tensor, heads: torch.Tensor):
     if stage == "local":
         _local(L, na, 0, pts, heads, out, name)
         return out, None
+    if stage == "lookback_k32":
+        S = 1 + int(heads[1:].sum())
+        sums = torch.empty((S, na, 8), dtype=torch.int32, device=pts.device)
+        scratch = torch.empty(L.zk_probe_lookback_bytes(na, n),
+                              dtype=torch.uint8, device=pts.device)
+        build.check(L.zk_probe_lookback(na, build.ptr(pts), build.ptr(heads),
+                                        build.ptr(sums), build.ptr(scratch),
+                                        n, build.stream_ptr(pts)), name)
+        F.count_launch(name, n)
+        return sums, None
     comb = 1 if stage == "structure" else 0
     agg = _scan(L, na, comb, pts, heads, out, name,
                 fix=stage != "local_agg")
@@ -207,13 +228,29 @@ def stream(curve: str, n: int, mean: float, seed: int, device):
     return pts, heads
 
 
+def _same_points(a: torch.Tensor, b: torch.Tensor,
+                 chunk: int = 1 << 22) -> bool:
+    """Whether two point tensors hold the same points, row by row (their
+    canonical values, chunk by chunk)."""
+    for i in range(0, a.shape[0], chunk):
+        ca = ec.canonical(a[i:i + chunk].contiguous())
+        cb = ec.canonical(b[i:i + chunk].contiguous())
+        if not all(torch.equal(x, y) for x, y in zip(ca, cb)):
+            return False
+    return True
+
+
 def stage_adds(stage: str, heads: torch.Tensor) -> int:
-    """Complete adds the stage makes on this head pattern: the local pass
-    adds where no head is, each recursion level the same over its
-    aggregates, each fix-up once per element before its thread's first
-    head."""
+    """Complete adds on this head pattern: for the whole scan and the
+    segment sums, the function's own work (one add for each element that
+    is not a head); for the partial stages, the adds the three-pass design
+    makes -- the local pass adds where no head is, each recursion level the
+    same over its aggregates (and, below the top, each fix-up once per
+    element before its thread's first head)."""
     if stage in ("copy", "structure"):
         return 0
+    if stage in ("full", "lookback_k32"):   # the function's own work
+        return heads.shape[0] - 1 - int(heads[1:].bool().sum())
     total, h, level = 0, heads.bool(), 0
     while True:
         n = h.shape[0]
@@ -224,7 +261,7 @@ def stage_adds(stage: str, heads: torch.Tensor) -> int:
         total += int((~hp[:, 1:]).sum())
         if stage == "local" or T == 1:
             return total
-        if stage == "full" or level > 0:
+        if level > 0:
             before = torch.cumsum(hp.int(), dim=1) == 0
             before[0] = False
             total += int(before.sum())
@@ -259,31 +296,46 @@ def run(device=None, means=None, log=print):
             n = STREAMS[curve]
             pts, heads = streams.pop(curve)
             s = min(CHECK_N, n)
-            # the main path's scan on the card; on the CPU ec.seg_scan runs
-            # its plain version, whose block size differs
-            full_eq = (torch.equal(scan_stage("full", pts, heads)[0],
-                                   ec.seg_scan(pts, heads))
+            # the main path's scan on the card, by affine value: it adds in
+            # another order than the three passes
+            full_eq = (_same_points(scan_stage("full", pts, heads)[0],
+                                    ec.seg_scan(pts, heads))
+                       if dev.type == "cuda" else None)
+            sums_eq = (_same_points(scan_stage("lookback_k32", pts, heads)[0],
+                                    ec.seg_sums(pts, heads))
                        if dev.type == "cuda" else None)
             t_full = times[curve, "full"]
             for st in STAGES:
                 got = scan_stage(st, pts[:s], heads[:s])
                 p, plain_ms = C.timed(lambda: plain_stage(st, pts[:s],
                                                           heads[:s]), dev)
-                err = max(C.max_abs_err(a, b) for a, b in zip(got, p)
-                          if a is not None)
+                if st == "lookback_k32":     # another order of adds
+                    err = max(C.max_abs_err(a, b) for a, b in zip(
+                        ec.canonical(got[0]), ec.canonical(p[0])))
+                else:
+                    err = max(C.max_abs_err(a, b) for a, b in zip(got, p)
+                              if a is not None)
                 if st == "full" and full_eq is False:
                     err = max(err, 1)
                 adds = stage_adds(st, heads)
                 name = f"scan_{st}_{curve}"
                 ms = times[curve, st]
-                r = C.row(name, REPLACES[st], n, ms, plain_ms, s,
-                          2 * na * 32 * n + n,
+                extra = {"full_equals_main_kernel": full_eq}
+                byts = 2 * na * 32 * n + n
+                if st == "lookback_k32":
+                    S = n - adds
+                    byts = na * 32 * (n + S) + n
+                    extra = {"equals_seg_sums": sums_eq,
+                             "source": SOURCES[st],
+                             "ptxas": next(iter(C.kernel_resources(
+                                 f"17k_{st}_{curve}").values()), None)}
+                r = C.row(name, REPLACES[st], n, ms, plain_ms, s, byts,
                           adds * MONTS_PER_ADD[na] * C.MULS_PER_MONT
                           / C.INT32_OPS_PER_S, err, adds=adds,
                           segment_mean=means[curve],
                           heads=int(heads.sum()),
                           share_of_full=round(ms / t_full, 4),
-                          full_equals_main_kernel=full_eq, device=dev.type)
+                          device=dev.type, **extra)
                 log(f"probe {name}: {ms:.3f} ms "
                     f"({r['share_of_full']:.3f} of full), {adds} adds, "
                     f"err {err}")

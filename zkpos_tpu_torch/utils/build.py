@@ -4,7 +4,8 @@ Two shared libraries, each built at first use into ``_build/`` inside the
 package and cached by a hash of its sources and flags:
 
 * the CUDA kernels: ``nvcc`` compiles every ``csrc/*.cu`` for sm_90a (one
-  process per source, all started together), links them into one ``.so``
+  process per source, all started together; the log gives each one's
+  seconds), links them into one ``.so``
   with a plain C interface, and ``ctypes`` loads it;
 * the host runtime (``csrc/host/zkpos_native.cpp``): ``g++`` into a second
   ``.so`` (the witness solver VM and batched host field arithmetic).
@@ -22,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import List, Optional
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,27 +73,31 @@ def _build_cuda() -> str:
         return so
     os.makedirs(out_dir, exist_ok=True)
     nvcc = nvcc_path()
-    procs = []
-    for src in sources:
-        obj = os.path.join(out_dir, os.path.basename(src) + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    logs = []
-    failed = []
-    for src, obj, p in procs:
-        text, _ = p.communicate()
-        logs.append(f"== {os.path.basename(src)}\n{text}")
-        if p.returncode != 0:
-            failed.append(src)
+    objs = [os.path.join(out_dir, os.path.basename(src) + ".o")
+            for src in sources]
+    done = {}
+
+    def compile_one(src, obj):
+        t0 = time.time()
+        p = subprocess.run([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o",
+                            obj], stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        done[src] = (p.returncode, p.stdout, time.time() - t0)
+    threads = [threading.Thread(target=compile_one, args=so)
+               for so in zip(sources, objs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    logs = [f"== {os.path.basename(src)} ({done[src][2]:.1f} s)\n"
+            f"{done[src][1]}" for src in sources]
+    failed = [src for src in sources if done[src][0] != 0]
     PTXAS_LOG = "\n".join(logs)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
                            + PTXAS_LOG)
     tmp = so + ".tmp"
-    subprocess.run([nvcc, "-shared", "-o", tmp,
-                    *[o for _, o, _ in procs]],
+    subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                    check=True, capture_output=True, text=True)
     with open(log, "w") as f:
         f.write(PTXAS_LOG)
@@ -114,8 +120,8 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_csr_eval": [V, V, V, V, V, V, LL, V],
                 "zk_g1_add": [V, V, V, LL, I, V],
                 "zk_g2_add": [V, V, V, LL, I, V],
-                "zk_seg_scan_local": [I, V, V, V, V, V, LL, I, V],
-                "zk_seg_scan_fixup": [I, V, V, V, LL, I, V],
+                "zk_seg_scan": [I, V, V, V, V, LL, V],
+                "zk_seg_sums": [I, V, V, V, V, LL, V],
                 "zk_poseidon_sparse3": [V, V, V, LL, LL, V, V],
                 "zk_poseidon_plain": [I, V, V, LL, V, V, V],
                 "zk_poseidon_chain": [V, V, LL, I, V, I, V, I, V],
@@ -127,12 +133,17 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_probe_scan_copy": [I, V, V, V, V, LL, I, V],
                 "zk_probe_scan_local": [I, I, V, V, V, V, V, LL, I, V],
                 "zk_probe_scan_fixup": [I, I, V, V, V, LL, I, V],
+                "zk_probe_lookback": [I, V, V, V, V, LL, V],
                 "zk_probe_dot": [I, I, V, V, V, LL, V],
             }
             for name, args in sigs.items():
                 fn = getattr(L, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+            L.zk_seg_scratch_bytes.argtypes = [I, I, LL]
+            L.zk_seg_scratch_bytes.restype = LL
+            L.zk_probe_lookback_bytes.argtypes = [I, LL]
+            L.zk_probe_lookback_bytes.restype = LL
             _cuda_lib = L
     return _cuda_lib
 
