@@ -14,12 +14,18 @@ Phases, in order; any failure exits non-zero:
      pipeline (leaves, tree and CEX commitments on the Poseidon kernels),
      the native solve with the device commitment MSM, two proves and the
      verification of both on the host pairing, with the launch count of
-     every kernel of the path (each must be above 0);
+     every kernel of the path (each must be above 0) and of each phase (a
+     prove must make no one-point add launch and one Horner launch a
+     MSM);
   5. every kernel of the prove path held against its plain PyTorch version
      on the card at the largest shape the path launched it with: the Fr/Fp
      kernels and one NTT over the 2^21 domain, the CSR evaluation of the
      path's A matrix at its witness, G1/G2 adds over as many pairs as
-     setup adds (identity, equal and negated pairs included), and the
+     setup adds (identity, equal and negated pairs included, also on
+     representatives with a coordinate's limbs at p - 1 or 1), the Horner
+     kernels on prove #2's five window-sum sets (against plain_horner and
+     the host oracle; then the one-point add loop the MSM ran before
+     against one launch, in turns), and the
      segmented scan and segment sums over the path's own MSM streams (the
      30.8 M-point G1 witness stream in full; the 33.6 M-point G1 H stream
      and the 42.3 M-point G2 stream on head-aligned slices), and over
@@ -77,13 +83,18 @@ INT32_MUL_PER_S = 132 * 64 * 1.98e9
 # 32-bit multiplies of one 8-limb CIOS Montgomery product: 8 x (8 wide
 # a*b products + 1 for m + 8 wide m*p products), a wide product = lo + hi
 MULS_PER_MONT = 8 * (16 + 1 + 16)
-MONTS_PER_ADD = {3: 14, 6: 42}      # G1: 12 + two 3b; G2: 3 x (12 + two 3b)
+# G1: 12 (its two 3b = 9 are doublings); G2: 3 x (12 + two 3b)
+MONTS_PER_ADD = {3: 12, 6: 42}
 # accounts of the witness-service path (2^16; not below 2^14)
 SERVICE_ACCOUNTS = 1 << 16
 
 REPLACES = {
     "g1_add": "zkpos_tpu/ops/ec_pallas.py:150",
     "g2_add": "zkpos_tpu/ops/ec_pallas.py:243",
+    "g1_horner": "zkpos_tpu/ops/ec_pallas.py:150 (_padd_kernel, looped by "
+                 "zkpos_tpu/ops/msm_device.py:407 _horner_windows)",
+    "g2_horner": "zkpos_tpu/ops/ec_pallas.py:243 (_padd2_kernel, looped by "
+                 "zkpos_tpu/ops/msm_device.py:407 _horner_windows)",
     "seg_scan_g1": "zkpos_tpu/ops/ec_pallas.py:268",
     "seg_scan_g2": "zkpos_tpu/ops/ec_pallas.py:268",
     "seg_sums_g1": "zkpos_tpu/ops/ec_pallas.py:268",
@@ -108,6 +119,8 @@ REPLACES = {
 SOURCES = {
     "g1_add": "zkpos_tpu_torch/csrc/ec_add.cu",
     "g2_add": "zkpos_tpu_torch/csrc/ec_add.cu",
+    "g1_horner": "zkpos_tpu_torch/csrc/ec_add.cu",
+    "g2_horner": "zkpos_tpu_torch/csrc/ec_add.cu",
     "seg_scan_g1": "zkpos_tpu_torch/csrc/seg_scan.cu",
     "seg_scan_g2": "zkpos_tpu_torch/csrc/seg_scan_g2.cu",
     "seg_sums_g1": "zkpos_tpu_torch/csrc/seg_scan.cu",
@@ -115,7 +128,8 @@ SOURCES = {
 }
 POSEIDON_SOURCE = "zkpos_tpu_torch/csrc/poseidon.cu"
 # the kernels each path must launch
-PR1_KERNELS = ("g1_add", "g2_add", "seg_scan_g1", "seg_scan_g2",
+PR1_KERNELS = ("g1_add", "g2_add", "g1_horner", "g2_horner", "seg_scan_g1",
+               "seg_scan_g2",
                "seg_sums_g1", "seg_sums_g2", "ff_mul", "ff_add", "ff_sub",
                "ff_pow", "ntt_stage", "csr_eval")
 PATH_KERNELS = {
@@ -194,6 +208,63 @@ def negate(pts):
         zero = F.const(0, F.FP, pts.device, mont=False)
         out[:, y] = F.plain_sub(zero, pts[:, y].contiguous(), F.FP)
     return out
+
+
+def rescale(pts, rows, side):
+    """pts[rows] as other projective representatives of the same points:
+    each scaled by the element that makes one coordinate's limbs (its c0 in
+    G2) p - 1 or 1 in turn, x, y and z in turn from `side` (y where the
+    coordinate is 0, as at the identity)."""
+    from zkpos_tpu_torch.ops import field as F
+    rows = list(rows)
+    na = pts.shape[1]
+    per = na // 3                      # Fp rows a coordinate
+    vals = F.tensor_to_ints(pts[rows].reshape(-1, 8))
+    out = []
+    for j in range(len(rows)):
+        v = vals[na * j:na * (j + 1)]
+        k = (j + side) % 3
+        if v[k * per] == 0:
+            k = 1
+        target = F.FP_MOD - 1 if j % 2 == 0 else 1
+        lam = target * pow(v[k * per], -1, F.FP_MOD) % F.FP_MOD
+        out += [x * lam % F.FP_MOD for x in v]
+    pts[rows] = F.ints_to_tensor(out, pts.device).reshape(len(rows), na, 8)
+
+
+def sass_of(obj, pattern):
+    """Base opcodes (IMAD.WIDE kept whole) of the kernel in csrc object
+    `obj` whose mangled name contains `pattern`, from cuobjdump -sass of
+    this run's build; None without cuobjdump."""
+    import re
+    import shutil
+    from zkpos_tpu_torch.utils import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", os.path.join(
+        build.cuda_objects_dir(), obj)], capture_output=True, text=True,
+        check=True).stdout
+    ops, cur = Counter(), False
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = pattern in m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if cur and m:
+            op = m.group(1)
+            ops["IMAD.WIDE" if op.startswith("IMAD.WIDE")
+                else op.split(".")[0]] += 1
+    return dict(ops)
+
+
+def ptxas_of(pattern):
+    """Registers, stack and spill bytes of the kernel whose mangled name
+    contains `pattern` (ptxas -v of this run's build)."""
+    from zkpos_tpu_torch.probes.common import kernel_resources
+    return next(iter(kernel_resources(pattern).values()), None)
 
 
 def max_abs_err(a, b):
@@ -318,17 +389,24 @@ def phase_main(universe=100, tier=50, batch=16, tier_count=None, depth=None,
     from zkpos_tpu_torch.circuit import solver_native as sn
     from zkpos_tpu_torch.groth16 import groth16 as g16
     from zkpos_tpu_torch.services.keygen import compile_tier
-    from zkpos_tpu_torch.ops import field as F
+    from zkpos_tpu_torch.ops import ec, field as F
 
     phases = {}
 
     on_card = torch.device(device).type == "cuda"
 
+    seen = Counter()
+
     def phase(name, t0):
         if on_card:
             torch.cuda.synchronize()
         phases[name] = round(time.time() - t0, 3)
-        log(json.dumps({"phase": name, "seconds": phases[name]}))
+        # the phase's own launches (setup's fixed-base batches, the solve's
+        # commitment MSMs, each prove's): the split PERF.md reports
+        own = {k: v - seen[k] for k, v in F.LAUNCHES.items() if v - seen[k]}
+        seen.update(own)
+        log(json.dumps({"phase": name, "seconds": phases[name],
+                        "launches": own}))
         return time.time()
 
     F.LAUNCHES.clear()
@@ -365,16 +443,40 @@ def phase_main(universe=100, tier=50, batch=16, tier_count=None, depth=None,
     t = phase("solve", t)
     proofs = []
     spans = {}
+    # the window sums and c of each MSM's Horner in prove #2 (its five
+    # MSMs), for the Horner kernels' checks
+    windows = []
+    horner = ec.horner
+
+    def keep_horner(rw, c):
+        windows.append((rw.clone(), c))
+        return horner(rw, c)
     for i in range(2):
         before = dict(F.LAUNCHES)
-        proofs.append(g16.prove(scs, pk, rng=lambda: rs.randrange(F.FR_MOD),
-                                spans=spans if i == 1 else None))
+        if i == 1:
+            ec.horner = keep_horner
+        try:
+            proofs.append(g16.prove(scs, pk,
+                                    rng=lambda: rs.randrange(F.FR_MOD),
+                                    spans=spans if i == 1 else None))
+        finally:
+            ec.horner = horner
         t = phase(f"prove_{i + 1}", t)
     per_prove = {k: v - before.get(k, 0) for k, v in F.LAUNCHES.items()
                  if v - before.get(k, 0)}
     log(json.dumps({"prove_2_spans_s": {k: round(v, 4)
                                         for k, v in spans.items()}}))
     log(json.dumps({"launches_per_prove": per_prove}))
+    # a prove makes no one-point add launch: each MSM's Horner is one
+    # launch, four in G1 and one in G2
+    want = {"g1_add": 0, "g2_add": 0, "g1_horner": 4, "g2_horner": 1}
+    got = {k: per_prove.get(k, 0) for k in want}
+    if got != want:
+        fail(f"launches per prove {got}, expected {want}")
+    if on_card:
+        proofs.append(prove_profiled(lambda: g16.prove(
+            scs, pk, rng=lambda: rs.randrange(F.FR_MOD))))
+        t = phase("prove_3_profiled", t)
     public = scs.public_values()
     for i, pf in enumerate(proofs):
         if not g16.verify(pf, vk, public):
@@ -391,7 +493,66 @@ def phase_main(universe=100, tier=50, batch=16, tier_count=None, depth=None,
                                   "peak_device_bytes": peak,
                                   "verified": True}}))
     log(json.dumps({"kernels": launches}))
-    return cs, pk, scs, launches, sizes
+    return cs, pk, scs, launches, sizes, windows
+
+
+# the port's kernels in a profile, by a piece of their (demangled) names
+PROFILE_NAMES = (("k_seg_sums_g1", "seg_sums_g1"),
+                 ("k_seg_sums_g2", "seg_sums_g2"),
+                 ("k_seg_scan_g1", "seg_scan_g1"),
+                 ("k_seg_scan_g2", "seg_scan_g2"),
+                 ("k_padd<ff::Fp1>", "g1_add"), ("k_padd<ff::Fp2>", "g2_add"),
+                 ("k_horner<ff::Fp1>", "g1_horner"),
+                 ("k_horner<ff::Fp2>", "g2_horner"),
+                 ("k_ntt_stage", "ntt_stage"), ("k_csr_eval", "csr_eval"),
+                 ("k_binary", "ff_mul / ff_add / ff_sub"), ("k_pow", "ff_pow"))
+
+
+def prove_profiled(prove):
+    """prove() under torch.profiler: the device time of each kernel in it
+    (the port's by their launch names, PyTorch's by theirs), the device's
+    busy time (the union of the kernels' intervals) and its idle share of
+    the prove's wall time (profiler on).  Logs "not measured" when the
+    profile holds no kernel.  Returns prove()'s result."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = prove()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    spans, ms, calls = [], Counter(), Counter()
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end      # microseconds
+        name = next((n for k, n in PROFILE_NAMES if k in ev.name),
+                    ev.name[:80])
+        ms[name] += (b - a) / 1e3
+        calls[name] += 1
+        spans.append((a, b))
+    if not spans:
+        log(json.dumps({"prove_3_profile": "not measured: the profile "
+                        "holds no device kernel"}))
+        return out
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    log(json.dumps({"prove_3_profile": {
+        "wall_ms": round(wall_ms, 3), "device_busy_ms": round(busy / 1e3, 3),
+        "idle_share": round(1 - busy / 1e3 / wall_ms, 4),
+        "kernels": [{"name": n, "calls": calls[n], "ms": round(v, 3)}
+                    for n, v in ms.most_common(24)]}}))
+    return out
 
 
 # --- every kernel against its plain version at the main path's shapes ------
@@ -499,7 +660,7 @@ def make_row(name, err, ms, n, plain_ms, plain_n, byts, muls):
             "ops_ms": round(t_ops, 4)}
 
 
-def phase_kernels(cs, pk, scs, sizes):
+def phase_kernels(cs, pk, scs, sizes, windows):
     """Each kernel on the card at the largest shape the main path launched
     it with (the main path's own streams and matrix where it has them),
     held against its plain version on the same inputs: exact agreement of
@@ -579,7 +740,9 @@ def phase_kernels(cs, pk, scs, sizes):
         8 * (d + 1) + 8 * T + 2 * 32 * T + 32 * d, MULS_PER_MONT * T)
     del zm, k, p
 
-    # point adds: identity on each side, P + P and P + (-P) among the pairs
+    # point adds: identity on each side, P + P and P + (-P) among the
+    # pairs, and the same kinds again (rows 500-619) on representatives
+    # scaled so that a coordinate's limbs are p - 1 or 1
     for curve, k_pool in (("g1", 32), ("g2", 16)):
         name = f"{curve}_add"
         n = sizes[name]
@@ -594,9 +757,15 @@ def phase_kernels(cs, pk, scs, sizes):
         b[200:300] = ec.identity(na, 100, "cuda")
         b[300:400] = a[300:400]
         b[400:500] = negate(a[400:500])
+        b[500:530] = a[500:530]
+        b[530:560] = negate(a[530:560])
+        a[560:590] = ec.identity(na, 30, "cuda")
+        rescale(a, range(500, 620), 0)
+        rescale(b, range(500, 620), 1)
         k = ec.point_add(a, b)
         p, plain_ms = timed(lambda: ec.plain_point_add(a, b))
-        sel = [0, 150, 250, 350, 450, 600, n - 1]
+        sel = [0, 150, 250, 350, 450, 505, 506, 535, 536, 565, 566, 600, 601,
+               700, n - 1]
         got = ec.to_affine(k[sel].cpu())
         ha, hb = ec.to_affine(a[sel].cpu()), ec.to_affine(b[sel].cpu())
         add = bn.g1_add if curve == "g1" else bn.g2_add
@@ -605,8 +774,24 @@ def phase_kernels(cs, pk, scs, sizes):
         ms = cuda_ms(lambda: ec.point_add(a, b), reps=5)
         row(name, max_abs_err(k, p), ms, n, plain_ms, n, 3 * na * 32 * n,
             MONTS_PER_ADD[na] * MULS_PER_MONT * n)
+        rows[-1]["ptxas"] = ptxas_of(f"6k_paddIN2ff3Fp{na // 3}EE")
+        # the add's instructions a thread (the function, its staging loops
+        # once), and two floors they set for n adds: all of them at the
+        # issue rate (4 warp instructions an SM a clock), the IMADs at the
+        # IMAD rate (64 lanes an SM a clock)
+        ops = sass_of("ec_add.cu.o", f"6k_paddIN2ff3Fp{na // 3}EE")
+        if ops:
+            total = sum(ops.values())
+            imad = sum(v for k, v in ops.items() if k.startswith("IMAD"))
+            rows[-1]["sass"] = {
+                "instructions": total, "imad": imad,
+                "top": dict(Counter(ops).most_common(8)),
+                "issue_ms": round(total * n / (132 * 128 * 1.98e9) * 1e3, 4),
+                "imad_ms": round(imad * n / INT32_MUL_PER_S * 1e3, 4)}
+            log(f"  {name} SASS: {json.dumps(rows[-1]['sass'])}")
         del a, b, k, p, ia, ib
         torch.cuda.empty_cache()
+    rows += phase_horner(windows)
 
     # segmented scans over the main path's own MSM streams: G1 over the
     # witness (A, c = 16; digit-0/1 segments of millions) in full, and over
@@ -668,17 +853,92 @@ def phase_kernels(cs, pk, scs, sizes):
         del pts, heads
         torch.cuda.empty_cache()
     adversarial = phase_scan_adversarial()
-    from zkpos_tpu_torch.probes.common import kernel_resources
     for name, a in acc.items():
         r = make_row(name, max(a["err"], adversarial[name]), a["ms"], a["n"],
                      a["plain_ms"], a["plain_n"], a["bytes"], a["muls"])
         kname = "k_" + name              # as mangled: length, then name
-        r["ptxas"] = next(iter(kernel_resources(
-            f"{len(kname)}{kname}").values()), None)
+        r["ptxas"] = ptxas_of(f"{len(kname)}{kname}")
         r["adversarial_max_abs_err"] = adversarial[name]
         rows.append(r)
     log(json.dumps({"scan_segment_mean": means}))
     return rows, means
+
+
+def phase_horner(windows):
+    """The Horner kernels on prove #2's own window sums (four G1 MSMs at
+    c = 16, the G2 MSM at c = 12), each held bit for bit against
+    plain_horner and by affine value against the host oracle
+    sum_w 2^(c w) rw[w]; then the G2 window sums and one G1 set through the
+    loop of one-point ec.point_add launches the MSM made before (written
+    here: the package keeps no second path) and through ec.horner, in
+    turns, with the launches of each.  Bound: the adds' products at the
+    data sheet's rate, though one thread runs them as one dependent
+    chain."""
+    import torch
+    from zkpos_tpu_torch.crypto import bn254 as bn
+    from zkpos_tpu_torch.ops import ec, field as F
+    acc = {}
+    for rw, c in windows:
+        na, W = rw.shape[1], rw.shape[0]
+        name = "g1_horner" if na == 3 else "g2_horner"
+        adds = (W - 1) * (c + 1)
+        k = ec.horner(rw, c)
+        p, plain_ms = timed(lambda: ec.plain_horner(rw, c))
+        mul, add = ((bn.g1_mul, bn.g1_add) if na == 3
+                    else (bn.g2_mul, bn.g2_add))
+        want = None
+        for w, pt in enumerate(ec.to_affine(rw.cpu())):
+            if pt is not None:
+                want = add(want, mul(pt, 1 << (c * w)))
+        if ec.to_affine(k.cpu()) != [want]:
+            fail(f"{name} disagrees with the host oracle")
+        a = acc.setdefault(name, {"err": 0, "ms": [], "plain_ms": 0.0,
+                                  "n": adds, "bytes": (W + 1) * na * 32})
+        a["err"] = max(a["err"], max_abs_err(k, p))
+        a["ms"].append(cuda_ms(lambda: ec.horner(rw, c), reps=3))
+        a["plain_ms"] += plain_ms
+    rows = []
+    for name, a in sorted(acc.items()):
+        na = 3 if name == "g1_horner" else 6
+        ms = sum(a["ms"]) / len(a["ms"])
+        rows.append(make_row(name, a["err"], ms, a["n"],
+                             a["plain_ms"] / len(a["ms"]), a["n"],
+                             a["bytes"], a["n"] * MONTS_PER_ADD[na]
+                             * MULS_PER_MONT))
+        rows[-1]["ptxas"] = ptxas_of(f"8k_hornerIN2ff3Fp{na // 3}EE")
+        rows[-1]["ms_each"] = [round(x, 4) for x in a["ms"]]
+
+    # the loop the MSM ran before, against one launch, in turns
+    def loop(rw, c):
+        acc_pt = rw[-1:]
+        for w in range(rw.shape[0] - 2, -1, -1):
+            for _ in range(c):
+                acc_pt = ec.point_add(acc_pt, acc_pt)
+            acc_pt = ec.point_add(acc_pt, rw[w:w + 1])
+        return acc_pt
+    g1 = next(x for x in windows if x[0].shape[1] == 3)
+    g2 = next(x for x in windows if x[0].shape[1] == 6)
+    apart = {}
+    for curve, (rw, c) in (("g2", g2), ("g1", g1)):
+        res = {"windows": rw.shape[0], "c": c, "old_loop_ms": [],
+               "horner_ms": []}
+        for form in ("old_loop", "horner", "horner", "old_loop"):
+            fn = (lambda: loop(rw, c)) if form == "old_loop" else (
+                lambda: ec.horner(rw, c))
+            before = Counter(F.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            res[f"{form}_ms"].append(round((time.time() - t0) * 1e3, 3))
+            res[f"{form}_launches"] = sum((Counter(F.LAUNCHES)
+                                           - before).values())
+            if not torch.equal(out, ec.horner(rw, c)):
+                fail(f"{curve}: the one-point add loop and the Horner kernel "
+                     "differ")
+        apart[curve] = res
+    log(json.dumps({"horner_old_loop_vs_one_launch": apart}))
+    return rows
 
 
 def phase_scan_adversarial():
@@ -1188,13 +1448,14 @@ def main():
     inputs = LargestInputs()
     inputs.install()
     launches = {}
-    cs, pk, scs, launches["prove"], sizes = phase_main()
+    cs, pk, scs, launches["prove"], sizes, windows = phase_main()
     need(launches["prove"], "prove")
     log(json.dumps({"prove_chain_launches": len(inputs.chain_launches),
                     "chains_per_launch": [c for c, _ in
                                           inputs.chain_launches]}))
     log(f"prove path done at {time.time() - t_all:.1f} s")
-    rows, means = phase_kernels(cs, pk, scs, sizes)
+    rows, means = phase_kernels(cs, pk, scs, sizes, windows)
+    del windows
     del cs, pk, scs
     torch.cuda.empty_cache()
     log(f"prove-path kernel checks done at {time.time() - t_all:.1f} s")

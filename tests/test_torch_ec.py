@@ -1,7 +1,8 @@
-"""The port's point add and segmented scan (zkpos_tpu_torch/ops/ec.py, the
-plain versions of csrc/ec_add.cu and csrc/seg_scan.cu: seg_scan and
-seg_sums) against the JAX package's CPU path (zkpos_tpu/ops/msm_device.py:
-_padd, _seg_scan_hs) and the bn254 host oracle.  Exact: affine points
+"""The port's point add, Horner and segmented scan (zkpos_tpu_torch/ops/ec.py,
+the plain versions of csrc/ec_add.cu -- point_add, horner -- and
+csrc/seg_scan.cu: seg_scan and seg_sums) against the JAX package's CPU path
+(zkpos_tpu/ops/msm_device.py: _padd, _horner_windows, _seg_scan_hs) and
+the bn254 host oracle.  Exact: affine points
 compared with ==.
 """
 import numpy as np
@@ -133,3 +134,26 @@ def test_seg_sums_matches_jax_hs_at_ends(curve, L):
     assert _same(port, want)
     assert _same(jax_out, want)
 
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_plain_horner_matches_jax_horner_windows(curve):
+    """The MSM's Horner (ops/ec.horner, its plain version on the CPU)
+    against the JAX package's _horner_windows and the oracle
+    sum_w 2^(c w) rw[w], by affine value: the JAX loop starts from the
+    identity, one add more, so its projective limbs differ.  The identity
+    and a repeated point are among the window sums."""
+    W, c = 3, 4
+    _, mul, add, _, na, _, _ = CURVES[curve]
+    P = _points(curve, 1, 18)
+    pts = [P[0], None, P[0]]
+    port = ec.to_affine(ec.horner(_to_port(curve, pts), c))
+    assert _same(port, ec.to_affine(ec.plain_horner(_to_port(curve, pts), c)))
+    arrs = tuple(a.reshape(34, W) for a in _jax_arrs(curve, pts))
+    jax_out = _jax_affine(curve, jmd._horner_windows(na, W, c, arrs))
+    want = None
+    for w, p in enumerate(pts):
+        if p is not None:
+            want = add(want, mul(p, 1 << (c * w)))
+    assert _same(port, [want])
+    assert _same(jax_out, [want])

@@ -354,3 +354,19 @@ def test_run_probe_rows(monkeypatch, name):
     for r in rows:
         assert r["ok"] and r["launches"] == 0 and r["n"] == mod.N
         assert r["bound_by"] in ("bytes", "operations")
+
+
+def test_ec_variants_sources():
+    """The add-variants script's copies of csrc: the G2 add's launch
+    bound substituted where the script says (so a change to ec_add.cu that
+    moves it fails here, not on the card), every other file unchanged."""
+    from zkpos_tpu_torch.probes import ec_variants as ev
+    from zkpos_tpu_torch.utils import build
+    out = ev._sources("test_kmin3", build.CSRC, 3)
+    with open(os.path.join(out, "ec_add.cu")) as f:
+        text = f.read()
+    assert ev.KMIN.replace("kMin = 2", "kMin = 3") in text
+    assert ev.KMIN not in text
+    with open(os.path.join(build.CSRC, "fp_ec.cuh")) as f, \
+            open(os.path.join(out, "fp_ec.cuh")) as g:
+        assert f.read() == g.read()

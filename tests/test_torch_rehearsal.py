@@ -2,8 +2,12 @@
 csrc/ec.cuh and csrc/poseidon.cuh, the headers the CUDA kernels include,
 compiled by g++ into a small harness (tests/torch_rehearsal.cpp) and
 checked against the host oracles -- Montgomery products in Fr, Fp and
-Fp2, complete G1 / G2 adds with the identity on each side, P + P and
-P + (-P), and the Poseidon permutations (the tree's sparse schedule, the
+Fp2, the EC core of csrc/fp_ec.cuh (its carry-chain primitives against
+exact integer arithmetic, its lazy Fp / Fp2 operations against an integer
+model of the same steps, edge operands and the range [p, 2p) included),
+complete G1 / G2 adds with the identity on each side, P + P, P + (-P) and
+representatives scaled so that a coordinate's limbs are p - 1 or 1, the
+MSM's Horner (ec.cuh horner) against ops/ec.plain_horner, and the Poseidon permutations (the tree's sparse schedule, the
 plain schedule, and the warp schedule of the chain kernel -- one
 permutation of width t and whole chains -- run on 32 host threads standing
 for the lanes) against crypto/poseidon_ref, with the constant tables the
@@ -69,6 +73,9 @@ def harness(tmp_path_factory):
     L.rh_seg.argtypes = [I, I, I, I, I, I, V, V, V, LG]
     L.rh_fold_counts.argtypes = [V, I, V]
     L.rh_fold_points.argtypes = [V, V, V, I, V]
+    L.rh_cc.argtypes = [I, V, V, V, V, V, V, LG]
+    L.rh_fp_lazy.argtypes = [I, V, V, V, LG]
+    L.rh_horner.argtypes = [I, V, I, I, V]
     return L
 
 
@@ -151,6 +158,207 @@ def test_complete_add(harness, curve):
     got = [_affine(curve, vals[na * i:na * (i + 1)])
            for i in range(len(pairs))]
     assert got == [add(x, y) for x, y in pairs]
+
+
+# --- the EC core (csrc/fp_ec.cuh) ---------------------------------------------
+
+M32 = (1 << 32) - 1
+P, P2 = bn.P, 2 * bn.P
+
+
+def _cc_want(op, a, b, c, cin):
+    """(d, carry flag after) of primitive `op` of rh_cc in exact integers;
+    the ops that write no flag leave it as it came in."""
+    lo, hi = (a * b) & M32, (a * b) >> 32
+    s = [a + b, a + b + cin, a + b + cin, a - b, a - b - cin, a - b - cin,
+         lo + c, lo + c + cin, hi + c + cin, hi + c + cin, hi][op]
+    if op in (0, 1, 6, 7, 8):
+        flag = s >> 32
+    elif op in (3, 4):
+        flag = int(s < 0)
+    else:
+        flag = cin
+    return s & M32, flag
+
+
+@pytest.mark.parametrize("op", range(11))
+def test_ec_core_carry_primitives(harness, op):
+    """Each carry-chain primitive's C++ form against exact arithmetic, on
+    all-zero, all-ones and random limbs, with the carry in at 0 and 1."""
+    rng = np.random.default_rng(300 + op)
+    edge = [0, 1, M32, M32 - 1]
+    rows = [(x, y, z, k) for x in edge for y in edge for z in edge
+            for k in (0, 1)]
+    rows += [tuple(int(v) for v in rng.integers(0, 1 << 32, 3)) + (k,)
+             for k in (0, 1) for _ in range(100)]
+    a, b, c, cin = (np.array(col, dtype=np.uint32) for col in zip(*rows))
+    d, cout = np.zeros_like(a), np.zeros_like(a)
+    assert harness.rh_cc(op, a.ctypes.data, b.ctypes.data, c.ctypes.data,
+                         cin.ctypes.data, d.ctypes.data, cout.ctypes.data,
+                         len(rows)) == 0
+    got = list(zip((int(v) for v in d), (int(v) for v in cout)))
+    assert got == [_cc_want(op, *r) for r in rows]
+
+
+def _mont(a, b):
+    """The lazy product exactly: (a b + M p) / R with M the one word-serial
+    CIOS finds, a b (-p^-1) mod R; no final subtraction."""
+    m = -a * b * pow(P, -1, RM) % RM
+    return (a * b + m * P) // RM
+
+
+def _ladd(a, b):
+    s = a + b
+    return s - P2 if s >= P2 else s
+
+
+def _lsub(a, b):
+    d = a - b
+    return d + P2 if d < 0 else d
+
+
+def _reduce(a):
+    return a - P if a >= P else a
+
+
+def _b3_g1(a):
+    a4 = _ladd(*(_ladd(a, a),) * 2)
+    return _ladd(_ladd(a4, a4), a)
+
+
+def _mul2(a, b):
+    t0, t1 = _mont(a[0], b[0]), _mont(a[1], b[1])
+    t2 = _mont(_ladd(a[0], a[1]), _ladd(b[0], b[1]))
+    return _lsub(t0, t1), _lsub(t2, _ladd(t0, t1))
+
+
+def _b3_g2(a):
+    inv82 = pow(82, -1, P)
+    k0, k1 = (v * inv82 % P * RM % P for v in (81, P - 9))
+    t0, t1 = _mont(k0, a[0]), _mont(k1, a[1])
+    t2 = _mont((k0 + k1) % P, _ladd(a[0], a[1]))
+    return _lsub(t0, t1), _lsub(t2, _ladd(t0, t1))
+
+
+# lazy operands: 0, 1, p - 1, p - 2, and [p, 2p) -- the range values take
+# inside an add -- then random values below 2p
+CORE_EDGE = [0, 1, P - 1, P - 2, P, P + 1, P2 - 2, P2 - 1]
+CORE_OPS = {                      # op: (model, Fp2?, operands below p only)
+    0: (_mont, False, False), 1: (_ladd, False, False),
+    2: (_lsub, False, False), 3: (lambda a, b: a + b, False, True),
+    4: (lambda a, b: _reduce(a), False, False),
+    5: (lambda a, b: _b3_g1(a), False, False),
+    6: (_mul2, True, False),
+    7: (lambda a, b: (_ladd(a[0], b[0]), _ladd(a[1], b[1])), True, False),
+    8: (lambda a, b: (_lsub(a[0], b[0]), _lsub(a[1], b[1])), True, False),
+    9: (lambda a, b: (_reduce(a[0]), _reduce(a[1])), True, False),
+    10: (lambda a, b: _b3_g2(a), True, False),
+}
+
+
+@pytest.mark.parametrize("op", sorted(CORE_OPS))
+def test_ec_core_lazy_ops(harness, op):
+    """fp_ec.cuh's lazy operations, limb for limb, against an integer model
+    of the same steps on every pair of edge operands and on random ones;
+    and the model's values against crypto/bn254 (the product and 3b in
+    Montgomery form, the sums and differences mod p, every result below 2p
+    and reduce's below p)."""
+    model, quad, reduced = CORE_OPS[op]
+    edge = [v for v in CORE_EDGE if v < P] if reduced else CORE_EDGE
+    top = P if reduced else P2
+    rand = [v % top for v in _rand(40, 1 << 256, 400 + op)]
+    if quad:
+        xs = [(x, y) for x in edge for y in edge[::3]] + list(
+            zip(rand[:20], rand[20:]))
+        ys = xs[::-1]
+    else:
+        xs = [x for x in edge for _ in edge] + rand
+        ys = [y for _ in edge for y in edge] + rand[::-1]
+    flat = (lambda v: [c for e in v for c in e]) if quad else list
+    a, b = _limbs(flat(xs)), _limbs(flat(ys))
+    out = np.zeros_like(a)
+    assert harness.rh_fp_lazy(op, a.ctypes.data, b.ctypes.data,
+                              out.ctypes.data, len(xs)) == 0
+    got = _ints(out)
+    want = flat([model(x, y) for x, y in zip(xs, ys)])
+    assert got == want
+    assert max(want) < (P if op in (4, 9) else P2)
+    rinv = pow(RM, -1, P)
+    for x, y, r in zip(xs, ys, [model(x, y) for x, y in zip(xs, ys)]):
+        if op == 0:
+            assert r % P == x * y * rinv % P
+        elif op == 5:
+            assert r % P == 9 * x % P
+        elif op == 6:
+            w = bn.Fp2(x[0] * rinv % P, x[1] * rinv % P) * bn.Fp2(
+                y[0] * rinv % P, y[1] * rinv % P)
+            assert (r[0] % P, r[1] % P) == (w.c0 * RM % P, w.c1 * RM % P)
+        elif op == 10:
+            b3 = bn.Fp2(81, P - 9) * bn.Fp2(pow(82, -1, P), 0)
+            w = b3 * bn.Fp2(x[0], x[1])
+            assert (r[0] % P, r[1] % P) == (w.c0, w.c1)
+
+
+def _scaled(curve, p, k, target):
+    """Montgomery limbs of p's projective representative scaled by the
+    element that makes coordinate k's limbs (its c0 in G2) equal `target`;
+    the identity (0 : 1 : 0) scales by its y."""
+    vals = _proj(curve, p)
+    j = k * (2 if curve == "g2" else 1)
+    if vals[j] == 0:
+        j = 1 if curve == "g1" else 2
+    lam = target * pow(vals[j], -1, P) % P
+    return [v * lam % P for v in vals]
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_complete_add_scaled(harness, curve):
+    """The add on representatives whose limbs sit at the edges of the lazy
+    core's ranges: a coordinate (x, y or z) of p - 1 or 1, on each side, for
+    the identity, P + P, P + (-P) and P + Q, against bn254 by affine
+    value."""
+    gen, mul, add, neg = ((bn.G1_GEN, bn.g1_mul, bn.g1_add, bn.g1_neg)
+                          if curve == "g1" else
+                          (bn.G2_GEN, bn.g2_mul, bn.g2_add, bn.g2_neg))
+    Pt, Q = mul(gen, 4242), mul(gen, 777)
+    pairs, a_rows, b_rows = [], [], []
+    for x, y in [(None, Pt), (Pt, None), (None, None), (Pt, Pt),
+                 (Pt, neg(Pt)), (Pt, Q)]:
+        for k in range(3):
+            for target in (P - 1, 1):
+                pairs.append((x, y))
+                a_rows.append(_scaled(curve, x, k, target))
+                b_rows.append(_scaled(curve, y, (k + 1) % 3, P - target))
+    a = _limbs([v for r in a_rows for v in r])
+    b = _limbs([v for r in b_rows for v in r])
+    fn = harness.rh_g1_add if curve == "g1" else harness.rh_g2_add
+    out = np.zeros_like(a)
+    fn(a.ctypes.data, b.ctypes.data, out.ctypes.data, len(pairs))
+    na = 3 if curve == "g1" else 6
+    vals = _ints(out)
+    assert max(vals) < P
+    got = [_affine(curve, vals[na * i:na * (i + 1)])
+           for i in range(len(pairs))]
+    assert got == [add(x, y) for x, y in pairs]
+
+
+@pytest.mark.parametrize("curve,W,c", [("g1", 3, 4), ("g2", 3, 4),
+                                       ("g1", 1, 16), ("g2", 2, 1)])
+def test_horner(harness, curve, W, c):
+    """ec.cuh's horner (the Horner kernels' body) against
+    ops/ec.plain_horner, limb for limb: the same adds in the same order,
+    with the identity among the window sums."""
+    pts = [None] + _points_g(curve, W - 1, 500 + W)
+    rw = tec.from_affine(pts[::-1], curve)
+    out = torch.zeros((1, rw.shape[1], 8), dtype=torch.int32)
+    harness.rh_horner(rw.shape[1], rw.data_ptr(), W, c, out.data_ptr())
+    assert torch.equal(out, tec.plain_horner(rw, c))
+
+
+def _points_g(curve, k, seed):
+    gen, mul = ((bn.G1_GEN, bn.g1_mul) if curve == "g1"
+                else (bn.G2_GEN, bn.g2_mul))
+    return [mul(gen, v) for v in _rand(k, bn.R, seed)]
 
 
 def _np(t):

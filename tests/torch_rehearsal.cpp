@@ -1,5 +1,6 @@
 // CPU rehearsal of the port's device arithmetic: the same headers the CUDA
-// kernels include, compiled by g++ into a small shared library that
+// kernels include (fp_ec.cuh's carry-chain primitives in their C++ forms),
+// compiled by g++ into a small shared library that
 // tests/test_torch_rehearsal.py drives through ctypes.  It is a test aid,
 // not a path of the port.
 #include "field.cuh"
@@ -322,13 +323,87 @@ void rh_mont_mul(int which, const uint32_t* a, const uint32_t* b,
   }
 }
 
+// the EC core's Fp2 product (fp_ec.cuh lmul), reduced
 void rh_fp2_mul(const uint32_t* a, const uint32_t* b, uint32_t* out, long n) {
   for (long i = 0; i < n; ++i) {
     Fp2 x, y;
     load_coord(x, a + 16 * i);
     load_coord(y, b + 16 * i);
-    store_coord(out + 16 * i, x * y);
+    store_coord(out + 16 * i, reduce(lmul(x, y)));
   }
+}
+
+// One carry-chain primitive of fp_ec.cuh on n rows: the carry flag in from
+// cin[i], d[i] and the flag out in cout[i].  op: 0 add_cc, 1 addc_cc,
+// 2 addc, 3 sub_cc, 4 subc_cc, 5 subc, 6 mad_lo_cc, 7 madc_lo_cc,
+// 8 madc_hi_cc, 9 madc_hi, 10 mul_hi (a, b, c: operands; c for the mads).
+int rh_cc(int op, const uint32_t* a, const uint32_t* b, const uint32_t* c,
+          const uint32_t* cin, uint32_t* d, uint32_t* cout, long n) {
+  for (long i = 0; i < n; ++i) {
+    Carry k{cin[i]};
+    uint32_t r = 0;
+    switch (op) {
+      case 0: add_cc(k, r, a[i], b[i]); break;
+      case 1: addc_cc(k, r, a[i], b[i]); break;
+      case 2: addc(k, r, a[i], b[i]); break;
+      case 3: sub_cc(k, r, a[i], b[i]); break;
+      case 4: subc_cc(k, r, a[i], b[i]); break;
+      case 5: subc(k, r, a[i], b[i]); break;
+      case 6: mad_lo_cc(k, r, a[i], b[i], c[i]); break;
+      case 7: madc_lo_cc(k, r, a[i], b[i], c[i]); break;
+      case 8: madc_hi_cc(k, r, a[i], b[i], c[i]); break;
+      case 9: madc_hi(k, r, a[i], b[i], c[i]); break;
+      case 10: r = mul_hi(a[i], b[i]); break;
+      default: return 1;
+    }
+    d[i] = r;
+    cout[i] = k.c;
+  }
+  return 0;
+}
+
+// fp_ec.cuh's lazy operations on n rows (Fp: 8 limbs a row; Fp2: 16).
+// op: 0 lmul, 1 ladd, 2 lsub, 3 lsum, 4 reduce (of a), 5 mul_b3 (of a),
+// 6-10 the same five for Fp2 (6 lmul, 7 ladd, 8 lsub, 9 reduce, 10 mul_b3).
+int rh_fp_lazy(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
+               long n) {
+  for (long i = 0; i < n; ++i) {
+    if (op < 6) {
+      Fp1 x, y, r;
+      load_coord(x, a + 8 * i);
+      load_coord(y, b + 8 * i);
+      switch (op) {
+        case 0: r = lmul(x, y); break;
+        case 1: r = ladd(x, y); break;
+        case 2: r = lsub(x, y); break;
+        case 3: r = lsum(x, y); break;
+        case 4: r = reduce(x); break;
+        default: r = mul_b3(x); break;
+      }
+      store_coord(out + 8 * i, r);
+    } else {
+      Fp2 x, y, r;
+      load_coord(x, a + 16 * i);
+      load_coord(y, b + 16 * i);
+      switch (op) {
+        case 6: r = lmul(x, y); break;
+        case 7: r = ladd(x, y); break;
+        case 8: r = lsub(x, y); break;
+        case 9: r = reduce(x); break;
+        case 10: r = mul_b3(x); break;
+        default: return 1;
+      }
+      store_coord(out + 16 * i, r);
+    }
+  }
+  return 0;
+}
+
+// ec.cuh's horner (the kernel of zk_g1_horner / zk_g2_horner): W window
+// sums of na = 3 | 6 coordinates -> one point
+void rh_horner(int na, const uint32_t* rw, int W, int c, uint32_t* out) {
+  if (na == 3) store_point(out, horner<Fp1>(rw, W, c));
+  else store_point(out, horner<Fp2>(rw, W, c));
 }
 
 void rh_g1_add(const uint32_t* a, const uint32_t* b, uint32_t* out, long n) {

@@ -168,25 +168,11 @@ FF_HD void powm(uint32_t* r, const uint32_t* a, const uint32_t* e,
 // --- point coordinates ------------------------------------------------------
 //
 // G1 coordinates are Fp elements; G2 coordinates are Fp2 = Fp[u]/(u^2 + 1)
-// elements stored as (c0, c1).  The complete add below is written once
-// over these two types.
+// elements stored as (c0, c1).  Their arithmetic, for the complete add, is
+// fp_ec.cuh's.  16-byte aligned, so that a point moves in 16-byte pieces.
 
-struct Fp1 { uint32_t v[8]; };
+struct alignas(16) Fp1 { uint32_t v[8]; };
 struct Fp2 { Fp1 c0, c1; };
-
-FF_HD Fp1 operator+(const Fp1& a, const Fp1& b) { Fp1 r; add<Fp>(r.v, a.v, b.v); return r; }
-FF_HD Fp1 operator-(const Fp1& a, const Fp1& b) { Fp1 r; sub<Fp>(r.v, a.v, b.v); return r; }
-FF_HD Fp1 operator*(const Fp1& a, const Fp1& b) { Fp1 r; mul<Fp>(r.v, a.v, b.v); return r; }
-
-FF_HD Fp2 operator+(const Fp2& a, const Fp2& b) { return Fp2{a.c0 + b.c0, a.c1 + b.c1}; }
-FF_HD Fp2 operator-(const Fp2& a, const Fp2& b) { return Fp2{a.c0 - b.c0, a.c1 - b.c1}; }
-// Karatsuba: three base-field products.
-FF_HD Fp2 operator*(const Fp2& a, const Fp2& b) {
-  Fp1 t0 = a.c0 * b.c0;
-  Fp1 t1 = a.c1 * b.c1;
-  Fp1 t2 = (a.c0 + a.c1) * (b.c0 + b.c1);
-  return Fp2{t0 - t1, t2 - t0 - t1};
-}
 
 FF_HD Fp1 fp_const(uint32_t l0, uint32_t l1, uint32_t l2, uint32_t l3,
                    uint32_t l4, uint32_t l5, uint32_t l6, uint32_t l7) {
@@ -194,21 +180,6 @@ FF_HD Fp1 fp_const(uint32_t l0, uint32_t l1, uint32_t l2, uint32_t l3,
   r.v[0] = l0; r.v[1] = l1; r.v[2] = l2; r.v[3] = l3;
   r.v[4] = l4; r.v[5] = l5; r.v[6] = l6; r.v[7] = l7;
   return r;
-}
-
-// 3b of each curve in Montgomery form: 9 for G1 (y^2 = x^3 + 3) and
-// 3b' = (81 - 9u)/82 for the G2 twist.
-FF_HD Fp1 mul_b3(const Fp1& a) {
-  return a * fp_const(0x410d7ff7u, 0xf60647ceu, 0xd31bd011u, 0x2f3d6f4du,
-                      0x3940c6d1u, 0x2943337eu, 0xa7e39857u, 0x1d9598e8u);
-}
-FF_HD Fp2 mul_b3(const Fp2& a) {
-  Fp2 k;
-  k.c0 = fp_const(0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
-                  0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u);
-  k.c1 = fp_const(0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
-                  0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au);
-  return k * a;
 }
 
 }  // namespace ff

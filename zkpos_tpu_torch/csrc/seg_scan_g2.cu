@@ -12,7 +12,8 @@ namespace {
 const int kK = 64;        // elements a lane, as seg_scan.cu
 const int kWarps = 4;
 
-// 255 registers: the add alone takes about as many (PERF.md)
+// up to 255 registers: the pass inlines a G2 add, which takes 238 on its
+// own (ec_add.cu)
 __global__ void __launch_bounds__(kWarps * kLanes, 2)
 k_seg_scan_g2(Args a) { seg_kernel_body<Fp2, kScan, kK>(a); }
 __global__ void __launch_bounds__(kWarps * kLanes, 2)

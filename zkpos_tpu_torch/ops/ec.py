@@ -1,7 +1,8 @@
-"""G1 / G2 point arithmetic on tensors: the complete add (csrc/ec_add.cu)
-and the inclusive segmented EC-sum scan (csrc/seg_scan.cu: every position,
-`seg_scan`, or each segment's sum, `seg_sums`), with their plain PyTorch
-versions.
+"""G1 / G2 point arithmetic on tensors: the complete add (csrc/ec_add.cu),
+the MSM's Horner over its window sums in one launch (csrc/ec_add.cu,
+`horner`) and the inclusive segmented EC-sum scan (csrc/seg_scan.cu: every
+position, `seg_scan`, or each segment's sum, `seg_sums`), with their plain
+PyTorch versions.
 
 Counterpart of zkpos_tpu/ops/ec_pallas.py (point_add_pallas,
 point_add2_pallas, seg_scan_pallas).  A batch of points is an int32
@@ -213,6 +214,8 @@ def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return plain_point_add(a, b)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError("operands must share one CUDA device")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("point_add: points must be 16-byte aligned")
     g1 = a.shape[1] == 3
     out = torch.empty_like(a)
     L = build.cuda_lib()
@@ -221,6 +224,46 @@ def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     build.check(fn(build.ptr(out), build.ptr(a), build.ptr(b), a.shape[0],
                    int(b.shape[0] == a.shape[0]), build.stream_ptr(a)), name)
     count_launch(name, a.shape[0])
+    return out
+
+
+# --- the MSM's Horner ----------------------------------------------------------------
+
+def plain_horner(rw: torch.Tensor, c: int) -> torch.Tensor:
+    """sum_w 2^(c w) rw[w] by Horner through the complete add: acc =
+    rw[W - 1]; for w = W - 2 .. 0, c doublings (acc + acc), then acc +
+    rw[w].  Returns (1, na, 8)."""
+    W = rw.shape[0]
+    acc = rw[W - 1:W]
+    for w in range(W - 2, -1, -1):
+        for _ in range(c):
+            acc = plain_point_add(acc, acc)
+        acc = plain_point_add(acc, rw[w:w + 1])
+    return acc.contiguous()
+
+
+def horner(rw: torch.Tensor, c: int) -> torch.Tensor:
+    """plain_horner's adds, in its order, in one launch of one thread
+    (csrc/ec_add.cu zk_g1_horner / zk_g2_horner), counted as
+    g1_horner / g2_horner.  rw: (W, na, 8) window sums, W >= 1."""
+    _check_pts(rw)
+    W = rw.shape[0]
+    if W == 0:
+        raise ValueError("horner: no window sums")
+    if rw.device.type == "cpu":
+        return plain_horner(rw, c)
+    if rw.device.type != "cuda":
+        raise ValueError("horner: window sums must lie on the CPU or a "
+                         "CUDA device")
+    g1 = rw.shape[1] == 3
+    out = torch.empty((1, rw.shape[1], 8), dtype=torch.int32,
+                      device=rw.device)
+    L = build.cuda_lib()
+    fn = L.zk_g1_horner if g1 else L.zk_g2_horner
+    name = "g1_horner" if g1 else "g2_horner"
+    build.check(fn(build.ptr(out), build.ptr(rw), W, c,
+                   build.stream_ptr(rw)), name)
+    count_launch(name, (W - 1) * (c + 1))   # its adds
     return out
 
 

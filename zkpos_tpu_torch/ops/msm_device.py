@@ -15,7 +15,8 @@ MSMs and the two commitment MSMs:
      reversed segmented scan over the bucket grid (ops/ec.seg_scan), T_0
      replaced by the identity, then each window's sum_{j >= 1} T_j
      (ops/ec.seg_sums, one segment a window);
-  4. a W-step Horner with c doublings through the complete add.
+  4. a Horner over the W window sums with c doublings through the
+     complete add, in one launch (ops/ec.horner).
 
 The TPU engine cut the stream into 2^21-entry chunks with a per-window
 carry to fit a v5e's 16 GB.  The H100's 80 GB hold a whole MSM's stream
@@ -160,13 +161,6 @@ def _fold(na: int, W: int, c: int, dense: torch.Tensor) -> torch.Tensor:
     return ec.seg_sums(suf.reshape(W * nb, na, 8).contiguous(), heads)
 
 
-def _horner(na: int, W: int, c: int, rw: torch.Tensor) -> torch.Tensor:
-    acc = rw[W - 1:W]
-    for w in range(W - 2, -1, -1):
-        for _ in range(c):
-            acc = ec.point_add(acc, acc)
-        acc = ec.point_add(acc, rw[w:w + 1])
-    return acc
 
 
 def msm(curve: str, base: torch.Tensor, scalars=None,
@@ -182,4 +176,4 @@ def msm(curve: str, base: torch.Tensor, scalars=None,
     dense = _bucket_sums(na, plan, base)
     rw = _fold(na, plan.W, plan.c, dense)
     del dense
-    return ec.to_affine(_horner(na, plan.W, plan.c, rw))[0]
+    return ec.to_affine(ec.horner(rw, plan.c))[0]

@@ -87,12 +87,12 @@ def max_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((d / b.double().abs().clamp_min(1e-30)).max())
 
 
-def kernel_resources(pattern: str) -> dict:
+def kernel_resources(pattern: str, log: str = None) -> dict:
     """Registers, stack frame and spill stores and loads of each kernel
-    whose mangled name contains `pattern`, from the ptxas report of the
-    last build."""
+    whose mangled name contains `pattern`, from a ptxas report (`log`, by
+    default the last build's)."""
     out, name, props = {}, None, None
-    for line in build.PTXAS_LOG.splitlines():
+    for line in (build.PTXAS_LOG if log is None else log).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1) if pattern in m.group(1) else None

@@ -28,8 +28,9 @@ Streams: the prove path's sizes, G1 at 30,795,264 and G2 at 42,343,488
 points (the witness streams of its A and B MSMs), points drawn from a pool
 of valid points, heads from a seeded Bernoulli pattern with the streams'
 mean segment length (SEGMENT_MEAN, which chip_smoke.py measures on the
-path's own streams and passes in).  Bound: complete adds (14 Montgomery
-products in G1, 42 in G2) at the INT32 rate -- for the whole scan and the
+path's own streams and passes in).  Bound: complete adds (12 Montgomery
+products in G1, its two by 3b = 9 being doublings; 42 in G2) at the INT32
+rate -- for the whole scan and the
 segment sums the function's own (one for each element that is not a head),
 for the partial stages those the three-pass design makes on this head
 pattern -- or the stream's bytes.
@@ -61,7 +62,7 @@ STREAMS = {"g1": 30_795_264, "g2": 42_343_488}
 # mean segment length of the prove path's A (G1) and B (G2) witness
 # streams, as chip_smoke.py measures them on the card (PERF.md, section 4)
 SEGMENT_MEAN = {"g1": 31.5, "g2": 492.3}
-MONTS_PER_ADD = {3: 14, 6: 42}
+MONTS_PER_ADD = {3: 12, 6: 42}
 CHECK_N = K ** 4        # a prefix the plain versions check: whole blocks
 REPS = 3                # timed launches of each stage
 

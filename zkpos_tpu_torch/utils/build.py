@@ -120,6 +120,8 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_csr_eval": [V, V, V, V, V, V, LL, V],
                 "zk_g1_add": [V, V, V, LL, I, V],
                 "zk_g2_add": [V, V, V, LL, I, V],
+                "zk_g1_horner": [V, V, I, I, V],
+                "zk_g2_horner": [V, V, I, I, V],
                 "zk_seg_scan": [I, V, V, V, V, LL, V],
                 "zk_seg_sums": [I, V, V, V, V, LL, V],
                 "zk_poseidon_sparse3": [V, V, V, LL, LL, V, V],
