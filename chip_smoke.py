@@ -19,8 +19,10 @@ Phases, in order; any failure exits non-zero:
      MSM);
   5. every kernel of the prove path held against its plain PyTorch version
      on the card at the largest shape the path launched it with: the Fr/Fp
-     kernels and one NTT over the 2^21 domain, the CSR evaluation of the
-     path's A matrix at its witness, G1/G2 adds over as many pairs as
+     kernels and one NTT over the 2^21 domain, the QAP row evaluation of
+     the path's A, B and C matrices at its witness (and of three CSRs that
+     stress it: A's rows of 8,192 terms or more alone, one row of 2^20
+     terms, 2^21 rows with no term), G1/G2 adds over as many pairs as
      setup adds (identity, equal and negated pairs included, also on
      representatives with a coordinate's limbs at p - 1 or 1), the Horner
      kernels on prove #2's five window-sum sets (against plain_horner and
@@ -45,10 +47,13 @@ Phases, in order; any failure exits non-zero:
      hash;
   8. every Poseidon kernel held against its plain version, bit for bit,
      on a slice of the inputs of its largest launch on paths 4, 6 and 7,
-     and timed on the whole of them: the tree's kernel at each of its
-     hashes-a-thread counts, and the chain kernel on the service path's
-     batched launch (every chain against the per-block kernel) and on one
-     chain, with the products on a chain's critical path;
+     and timed on the whole of them: the tree's kernel, the one-thread
+     sparse permutation at each width the paths ran (against the plain
+     schedule; with its ptxas figures, and the warp-a-chain kernel on the
+     largest leaf-commitment input beside the per-block chain), and the
+     chain kernel on the service path's batched launch (every chain
+     against the per-block kernel) and on one chain, with the products on
+     a chain's critical path;
   9. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
      probes in scripts/): instruction rates, the digit convolutions, the
      Montgomery product's stages, the sparse Poseidon(2) ablations over
@@ -109,10 +114,8 @@ REPLACES = {
                 "kernel)",
     "poseidon_sparse3": "zkpos_tpu/ops/poseidon_f32_pallas.py:273",
     "poseidon_plain_t3": "zkpos_tpu/ops/poseidon_pallas.py:99",
-    "poseidon_plain_t6": "zkpos_tpu/ops/poseidon.py:70 (XLA permute, no "
+    "poseidon_sparse_t": "zkpos_tpu/ops/poseidon.py:70 (XLA permute, no "
                          "Pallas kernel)",
-    "poseidon_plain_t17": "zkpos_tpu/ops/poseidon.py:70 (XLA permute, no "
-                          "Pallas kernel)",
     "poseidon_chain": "zkpos_tpu/ops/poseidon.py:117 (XLA lax.scan of "
                       "hash_chain_mont, no Pallas kernel)",
 }
@@ -133,11 +136,11 @@ PR1_KERNELS = ("g1_add", "g2_add", "g1_horner", "g2_horner", "seg_scan_g1",
                "seg_sums_g1", "seg_sums_g2", "ff_mul", "ff_add", "ff_sub",
                "ff_pow", "ntt_stage", "csr_eval")
 PATH_KERNELS = {
-    "prove": PR1_KERNELS + ("poseidon_sparse3", "poseidon_plain_t6",
-                            "poseidon_plain_t17", "poseidon_chain"),
+    "prove": PR1_KERNELS + ("poseidon_sparse3", "poseidon_sparse_t6",
+                            "poseidon_sparse_t17", "poseidon_chain"),
     "tree": ("poseidon_sparse3", "poseidon_plain_t3", "ff_mul"),
-    "service": ("poseidon_sparse3", "poseidon_plain_t6",
-                "poseidon_plain_t17", "poseidon_chain", "ff_mul"),
+    "service": ("poseidon_sparse3", "poseidon_sparse_t6",
+                "poseidon_sparse_t17", "poseidon_chain", "ff_mul"),
 }
 # the probes path's kernels (PATH_KERNELS["probes"], one per probe variant)
 # are filled in by main from the probes package; the path's time budget
@@ -145,10 +148,11 @@ PROBES_PATH_LIMIT_S = 120
 
 
 def replaces(name):
-    """REPLACES, with the plain-schedule kernel at a width not listed
-    there (the chains' narrower tail blocks) under the XLA permute."""
-    if name.startswith("poseidon_plain_t") and name not in REPLACES:
-        return REPLACES["poseidon_plain_t6"]
+    """REPLACES, with the sparse permutation at every width (the leaves,
+    the commitments' blocks and their narrower tails) under the XLA
+    permute."""
+    if name.startswith("poseidon_sparse_t"):
+        return REPLACES["poseidon_sparse_t"]
     return REPLACES[name]
 
 
@@ -505,6 +509,7 @@ PROFILE_NAMES = (("k_seg_sums_g1", "seg_sums_g1"),
                  ("k_horner<ff::Fp1>", "g1_horner"),
                  ("k_horner<ff::Fp2>", "g2_horner"),
                  ("k_ntt_stage", "ntt_stage"), ("k_csr_eval", "csr_eval"),
+                 ("k_csr_fixup", "csr_eval"),
                  ("k_binary", "ff_mul / ff_add / ff_sub"), ("k_pow", "ff_pow"))
 
 
@@ -726,19 +731,45 @@ def phase_kernels(cs, pk, scs, sizes, windows):
         (2 * 32 + 32) * n // 2 + 32 * n, MULS_PER_MONT * n // 2)
     del x, k, p, z, z0
 
-    # the QAP rows of the main path's A matrix at its own witness
+    # the QAP rows of the main path's three matrices at its own witness,
+    # then three CSRs that stress the even split (phase_csr_adversarial)
     zt = md.scalars_tensor(scs.witness_vector(), "cuda")
     zm = F.to_mont(zt)
     d = pk.domain_size
-    rowptr, col, cid = qd._row_csr(cs, 0, d, zm.device)
     pool = qd.pool_mont(cs, zm.device)
-    T = col.shape[0]
-    k = F.csr_eval(rowptr, col, cid, pool, zm)
-    p, plain_ms = timed(lambda: F.plain_csr_eval(rowptr, col, cid, pool, zm))
-    ms = cuda_ms(lambda: F.csr_eval(rowptr, col, cid, pool, zm), reps=3)
-    row("csr_eval", max_abs_err(k, p), ms, T, plain_ms, T,
-        8 * (d + 1) + 8 * T + 2 * 32 * T + 32 * d, MULS_PER_MONT * T)
-    del zm, k, p
+    by_matrix, err = {}, 0
+    for which, mat in enumerate("ABC"):
+        rid, col, cid = qd._row_terms(cs, which, zm.device)
+        T = col.shape[0]
+        k = F.csr_eval(rid, col, cid, pool, zm, d)
+        p, plain_ms = timed(lambda: F.plain_csr_eval(rid, col, cid, pool, zm,
+                                                     d))
+        e = max_abs_err(k, p)
+        err = max(err, e)
+        ms = cuda_ms(lambda: F.csr_eval(rid, col, cid, pool, zm, d), reps=5)
+        lens = torch.bincount(rid.long(), minlength=d)
+        by_matrix[mat] = {
+            "terms": T, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+            "max_abs_err": e, **csr_bound(col, cid, d),
+            "median_row": int(lens[lens > 0].float().median()) if T else 0,
+            "longest_row": int(lens.max()),
+            "rows_ge_8192": int((lens >= 8192).sum()),
+            "rows_ge_33": int((lens >= 33).sum())}
+        log(f"  csr_eval {mat}: {json.dumps(by_matrix[mat])}")
+        if mat == "A":
+            a_args = (T, ms, plain_ms, csr_bytes(col, cid, d))
+            long_rows = (lens >= 8192)[rid.long()]
+            adv_a = (rid[long_rows].contiguous(), col[long_rows].contiguous(),
+                     cid[long_rows].contiguous())
+        del rid, col, cid, k, p, lens
+    adversarial = phase_csr_adversarial(adv_a, pool, zm, d)
+    T, ms, plain_ms, nbytes = a_args
+    row("csr_eval", max([err] + [a["max_abs_err"]
+                                 for a in adversarial.values()]),
+        ms, T, plain_ms, T, nbytes, MULS_PER_MONT * T)
+    rows[-1].update({"ptxas": ptxas_of("10k_csr_eval"),
+                     "by_matrix": by_matrix, "adversarial": adversarial})
+    del zm, adv_a
 
     # point adds: identity on each side, P + P and P + (-P) among the
     # pairs, and the same kinds again (rows 500-619) on representatives
@@ -862,6 +893,66 @@ def phase_kernels(cs, pk, scs, sizes, windows):
         rows.append(r)
     log(json.dumps({"scan_segment_mean": means}))
     return rows, means
+
+
+def csr_bytes(col, cid, nrows):
+    """Bytes the row evaluation must move: a row id, a column and a
+    coefficient id a term (4 bytes each), each coefficient and each
+    element of x that the terms name, read once (32 bytes each: a gather
+    that repeats one hits the caches at best), 32 bytes a row out."""
+    import torch
+    used = torch.unique(cid).numel() + torch.unique(col).numel()
+    return 12 * col.shape[0] + 32 * used + 32 * nrows
+
+
+def csr_bound(col, cid, nrows):
+    """The row evaluation's bound on these terms, as make_row gives a
+    kernel's: its bytes (csr_bytes) and its products, each at the card's
+    rate."""
+    t_bytes = csr_bytes(col, cid, nrows) / HBM_BYTES_PER_S * 1e3
+    t_ops = MULS_PER_MONT * col.shape[0] / INT32_MUL_PER_S * 1e3
+    return {"bound_ms": round(max(t_bytes, t_ops), 4),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": round(t_bytes, 4), "ops_ms": round(t_ops, 4)}
+
+
+def phase_csr_adversarial(adv_a, pool, zm, d):
+    """The row evaluation on three CSRs that stress the even split, each
+    bit for bit against plain_csr_eval and timed: the A matrix's rows of
+    8,192 terms or more alone (at their rows, the others empty), one row of
+    2^20 terms (a row through 4,096 chunks), and d rows with no term.
+    Returns {case: its figures}."""
+    import torch
+    from zkpos_tpu_torch.ops import field as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    n = 1 << 20
+    one = (torch.full((n,), 5, dtype=torch.int32, device="cuda"),
+           torch.randint(0, zm.shape[0], (n,), generator=gen, device="cuda",
+                         dtype=torch.int32),
+           torch.randint(0, pool.shape[0], (n,), generator=gen,
+                         device="cuda", dtype=torch.int32))
+    empty = tuple(torch.empty((0,), dtype=torch.int32, device="cuda")
+                  for _ in range(3))
+    out = {}
+    for case, terms, nrows in (("a_rows_ge_8192", adv_a, d),
+                               ("one_row_2p20", one, 7),
+                               ("no_terms", empty, d)):
+        k = F.csr_eval(*terms, pool, zm, nrows)
+        p, plain_ms = timed(lambda: F.plain_csr_eval(*terms, pool, zm, nrows))
+        T = terms[0].shape[0]
+        out[case] = {
+            "terms": T, "rows": nrows,
+            "max_abs_err": max_abs_err(k, p),
+            "ms": round(cuda_ms(lambda: F.csr_eval(*terms, pool, zm, nrows),
+                                reps=5), 4),
+            "plain_ms": round(plain_ms, 4),
+            **csr_bound(terms[1], terms[2], nrows)}
+        log(f"  csr_eval adversarial {case}: {json.dumps(out[case])}")
+        if out[case]["max_abs_err"]:
+            fail(f"csr_eval disagrees with its plain version on {case}")
+        del k, p
+    return out
 
 
 def phase_horner(windows):
@@ -1025,12 +1116,14 @@ def chain_monts(n):
 
 
 class LargestInputs:
-    """Keeps a copy of the input of the largest launch of each plain and
-    chain Poseidon kernel while installed, by wrapping ops.poseidon's
-    permute and chain_mont (the wrappers count their launches as ever).
-    Inputs of more than `cap` states are not kept: the one such launch, the
-    tree path's plain-schedule check, is rebuilt from the tree.  The shape
-    of every chain launch is recorded in `chain_launches`."""
+    """Keeps a copy of the input of the largest launch of each permutation
+    and chain Poseidon kernel while installed, by wrapping ops.poseidon's
+    permute and chain_mont (the wrappers count their launches as ever), and
+    of the largest per-block chain (hash_chain_mont: the leaves' asset
+    commitments) under "leaf_chain".  Inputs of more than `cap` states are
+    not kept: the one such launch, the tree path's plain-schedule check, is
+    rebuilt from the tree.  The shape of every chain launch is recorded in
+    `chain_launches`."""
 
     def __init__(self, cap=1 << 20):
         self.cap = cap
@@ -1045,13 +1138,16 @@ class LargestInputs:
 
     def install(self):
         from zkpos_tpu_torch.ops import poseidon as P
-        self.orig = (P.permute, P.chain_mont)
-        permute, chain_mont = self.orig
+        self.orig = (P.permute, P.chain_mont, P.hash_chain_mont)
+        permute, chain_mont, hash_chain_mont = self.orig
 
         def keep_permute(state):
-            self._keep(f"poseidon_plain_t{state.shape[1]}", state.shape[0],
-                       state)
+            self._keep(P.kernel_name(state.shape[1]), state.shape[0], state)
             return permute(state)
+
+        def keep_leaf_chain(inputs):
+            self._keep("leaf_chain", inputs.shape[0], inputs)
+            return hash_chain_mont(inputs)
 
         def keep_chain(inputs):
             self._keep("poseidon_chain", inputs.shape[0] * inputs.shape[1],
@@ -1059,10 +1155,11 @@ class LargestInputs:
             self.chain_launches.append(tuple(inputs.shape[:2]))
             return chain_mont(inputs)
         P.permute, P.chain_mont = keep_permute, keep_chain
+        P.hash_chain_mont = keep_leaf_chain
 
     def remove(self):
         from zkpos_tpu_torch.ops import poseidon as P
-        P.permute, P.chain_mont = self.orig
+        P.permute, P.chain_mont, P.hash_chain_mont = self.orig
 
 
 def random_leaves(n, seed, device="cuda"):
@@ -1313,19 +1410,45 @@ def phase_poseidon_kernels(tree, inputs):
                          poseidon_monts(3) * MULS_PER_MONT * n))
     del st, a, b, k, p
     torch.cuda.empty_cache()
+    # the sparse permutation at each width the paths ran, launched on the
+    # whole of its largest launch's input and timed there: every digest
+    # against the plain sparse schedule (the wrapper's CPU route), and a
+    # slice's (which bounds its memory) against the plain schedule, which
+    # reads none of the sparse tables
     for name in sorted(inputs.best, key=lambda x: (len(x), x)):
-        if (not name.startswith("poseidon_plain_t")
-                or name == "poseidon_plain_t3"):
+        if not name.startswith("poseidon_sparse_t"):
             continue
         n, x = inputs.best[name]
         t = x.shape[1]
         s = min(n, (1 << 18) * 9 // (t * t))
-        k = P.permute(x[:s].contiguous())
-        p, plain_ms = timed(lambda: P.plain_permute(x[:s]))
+        k = P.permute(x)
+        p, plain_ms = timed(lambda: S.plain_permute_sparse(x))
+        err = max_abs_err(k, p)
+        p, schedule_ms = timed(lambda: P.plain_permute(x[:s]))
+        err = max(err, max_abs_err(k[:s], p))
         ms = cuda_ms(lambda: P.permute(x), reps=3)
-        rows.append(make_row(name, max_abs_err(k, p), ms, n, plain_ms, s,
+        rows.append(make_row(name, err, ms, n, plain_ms, n,
                              (t + 1) * 32 * n,
-                             poseidon_monts(t) * MULS_PER_MONT * n))
+                             sparse_monts(t) * MULS_PER_MONT * n))
+        rows[-1]["ptxas"] = ptxas_of(f"6k_wideILi{t}EE")
+        rows[-1]["plain_schedule"] = {"ms": round(schedule_ms, 4), "n": s,
+                                      "monts": poseidon_monts(t)}
+        rows[-1]["sparse_monts"] = sparse_monts(t)
+        del k, p
+    # the largest leaf-commitment input: one launch a block of the chain
+    # (the path's route) beside the warp-a-chain kernel, a yardstick only
+    _, x = inputs.best["leaf_chain"]
+    per_block = P.hash_chain_mont(x)
+    if not torch.equal(P.chain_mont(x), per_block):
+        fail("leaf commitments: chain_mont and hash_chain_mont differ")
+    cmp = {"accounts": x.shape[0], "inputs": x.shape[1],
+           "widths": chain_widths(x.shape[1]),
+           "hash_chain_mont_ms": round(cuda_ms(
+               lambda: P.hash_chain_mont(x), reps=3), 4),
+           "chain_mont_ms": round(cuda_ms(lambda: P.chain_mont(x), reps=3),
+                                  4)}
+    log(json.dumps({"leaf_chain_vs_chain_mont": cmp}))
+    rows[-1]["leaf_chain_vs_chain_mont"] = cmp
     # the chain at its largest launch (the service path's batched CEX
     # commitments): every chain against the per-block plain-schedule
     # kernel, the first 113 inputs of every chain (8 blocks, a narrower
@@ -1420,7 +1543,9 @@ def rebound(rows, wide):
     (two multiplies a step) in place of the data sheet's INT32 rate."""
     log(json.dumps({"wide_mad_muls_per_s": round(wide),
                     "of_int32_mul_per_s": round(wide / INT32_MUL_PER_S, 4)}))
-    for r in rows:
+    parts = [p for r in rows for key in ("by_matrix", "adversarial")
+             for p in r.get(key, {}).values()]
+    for r in rows + parts:
         if "ops_ms" in r:
             r["bound_ms_at_measured_rate"] = round(
                 max(r["bytes_ms"], r["ops_ms"] * INT32_MUL_PER_S / wide), 4)

@@ -6,6 +6,8 @@ against the JAX package, with exact equality of canonical digests:
   the CPU) and against crypto/poseidon_opt.permutation_opt;
 * the sparse tables of width 3, 11 and 17 (the chain kernel's schedule)
   against crypto/poseidon_ref.permutation on random states;
+* the plain schedule at t = 11 and 17, and ``permute`` (the sparse
+  schedule from t = 4), against crypto/poseidon_ref and poseidon_opt;
 * the plain schedule at t = 6, batch hashing, and the t = 17 chain (the
   per-block one of hash_chain_mont on the plain schedule and the
   one-launch one of chain_mont on the sparse one) against
@@ -70,8 +72,25 @@ def test_plain_schedule_t6_matches_oracle():
     states = [[0] * 6, [0] + [R - 1] * 5] + [_rand(6, 10 + i)
                                              for i in range(2)]
     x = tpos.mont_tensor([v for s in states for v in s], "cpu")
-    got = _digests(tpos.permute(x.reshape(len(states), 6, 8)))
+    got = _digests(tpos.plain_permute(x.reshape(len(states), 6, 8)))
     assert got == [permutation(s)[1] for s in states]
+
+
+@pytest.mark.parametrize("t", [11, 17])
+def test_plain_schedule_matches_jax_permutations(t):
+    """The plain wide permutation against the JAX package's permutation
+    (crypto/poseidon_ref, the function its ops.poseidon.permute is held to;
+    that XLA function itself compiles for 60-100 s a width on the CPU), and
+    ``permute`` (the sparse schedule at t >= 4) against it and against
+    the package's sparse schedule (crypto/poseidon_opt)."""
+    states = [[0] * t, [R - 1] * t, _rand(t, 80 + t)]
+    x = tpos.mont_tensor([v for s in states for v in s], "cpu")
+    x = x.reshape(len(states), t, 8)
+    want = [permutation(s)[1] for s in states]
+    assert _digests(tpos.plain_permute(x)) == want
+    assert _digests(tpos.permute(x)) == want
+    assert [jopt.permutation_opt(s)[1] for s in states] == want
+    assert tpos.kernel_name(t) == f"poseidon_sparse_t{t}"
 
 
 def test_hash_batch_matches_oracle():

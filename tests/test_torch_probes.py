@@ -370,3 +370,25 @@ def test_ec_variants_sources():
     with open(os.path.join(build.CSRC, "fp_ec.cuh")) as f, \
             open(os.path.join(out, "fp_ec.cuh")) as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("variant", ["nosync", "block64", "smem"])
+def test_poseidon_variants_sources(variant):
+    """The wide-permutation variants script's copies of csrc: each of the
+    variant's substitutions made where the script says (so a change that
+    moves the text fails here, not on the card), every other file
+    unchanged."""
+    from zkpos_tpu_torch.probes import poseidon_variants as pv
+    from zkpos_tpu_torch.utils import build
+    subs = pv.VARIANTS[variant]
+    out = pv._sources("test_" + variant, build.CSRC, subs)
+    changed = {f for f, _, _ in subs}
+    for f, old, new in subs:
+        with open(os.path.join(out, f)) as g:
+            text = g.read()
+        assert new in text and old not in text
+    for f in ("poseidon.cu", "poseidon.cuh", "field.cuh"):
+        if f not in changed:
+            with open(os.path.join(build.CSRC, f)) as g, \
+                    open(os.path.join(out, f)) as h:
+                assert g.read() == h.read()

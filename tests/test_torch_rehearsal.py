@@ -1,5 +1,6 @@
 """CPU rehearsal of the port's device arithmetic: csrc/field.cuh,
-csrc/ec.cuh and csrc/poseidon.cuh, the headers the CUDA kernels include,
+csrc/ec.cuh, csrc/poseidon.cuh and csrc/csr.cuh, the headers the CUDA
+kernels include,
 compiled by g++ into a small harness (tests/torch_rehearsal.cpp) and
 checked against the host oracles -- Montgomery products in Fr, Fp and
 Fp2, the EC core of csrc/fp_ec.cuh (its carry-chain primitives against
@@ -8,7 +9,8 @@ model of the same steps, edge operands and the range [p, 2p) included),
 complete G1 / G2 adds with the identity on each side, P + P, P + (-P) and
 representatives scaled so that a coordinate's limbs are p - 1 or 1, the
 MSM's Horner (ec.cuh horner) against ops/ec.plain_horner, and the Poseidon permutations (the tree's sparse schedule, the
-plain schedule, and the warp schedule of the chain kernel -- one
+plain schedule, the one-thread sparse schedule at t = 4..17, and the warp
+schedule of the chain kernel -- one
 permutation of width t and whole chains -- run on 32 host threads standing
 for the lanes) against crypto/poseidon_ref, with the constant tables the
 port's wrappers upload;
@@ -18,7 +20,10 @@ ablations and the scan's passes under both combines) against their plain
 versions in zkpos_tpu_torch/probes; and the single-pass scan of
 csrc/seg_scan.cuh (its lane pass, lane scan, carries and count look-back,
 run tile by tile at a few lanes a tile) against ops/ec.plain_seg_scan /
-plain_seg_sums on the streams that stress its tiles.  Skips without g++."""
+plain_seg_sums on the streams that stress its tiles; and the QAP row
+evaluation of csrc/csr.cuh (the lanes' runs, their segmented scan, the
+carries and their fix-up, chunk by chunk at a few lanes) against
+ops/field.plain_csr_eval.  Skips without g++."""
 import ctypes
 import os
 import shutil
@@ -64,6 +69,9 @@ def harness(tmp_path_factory):
     L.rh_poseidon_sparse_warp.argtypes = [I, V, V, V, LG]
     L.rh_poseidon_plain.argtypes = [I, V, V, V, V, LG]
     L.rh_poseidon_chain.argtypes = [V, I, V, V, V]
+    L.rh_poseidon_wide.argtypes = [I, V, V, V, LG]
+    L.rh_csr.argtypes = [I, I, V, V, V, V, V, ctypes.c_longlong,
+                         ctypes.c_longlong, V]
     L.rh_probe_rate.argtypes = [I, V, V, LG, I]
     L.rh_probe_conv.argtypes = [I, V, V, V, LG]
     L.rh_probe_product.argtypes = [I, V, V, V, LG]
@@ -409,6 +417,20 @@ def test_poseidon_plain(harness, t):
     assert _from_mont(out) == [permutation(s)[1] for s in states]
 
 
+@pytest.mark.parametrize("t", [4, 6, 11, 17])
+def test_poseidon_wide(harness, t):
+    """The one-thread sparse schedule of k_wide (poseidon.cuh
+    permute_wide) on the tables of ops/poseidon_sparse.table."""
+    states = [[0] * t, [0] + [bn.R - 1] * (t - 1), [bn.R - 1] * t,
+              _rand(t, bn.R, 70 + t)]
+    st = _limbs([v * RM % bn.R for s in states for v in s])
+    k = _np(tsparse.table("cpu", t))
+    out = np.zeros((len(states), 8), dtype=np.uint32)
+    assert harness.rh_poseidon_wide(t, st.ctypes.data, k.ctypes.data,
+                                    out.ctypes.data, len(states)) == 0
+    assert _from_mont(out) == [permutation(s)[1] for s in states]
+
+
 @pytest.mark.parametrize("n", [16, 17, 31, 46, 80])
 def test_poseidon_chain_rule(harness, n):
     """The chain kernel's whole schedule (chain_warp: blocks of width 17
@@ -589,3 +611,55 @@ def test_seg_fold_points(harness, status, done):
             want = bn.g1_add(want, agg[i])
         assert tec.to_affine(x) == [want]
 
+
+
+# --- the row evaluation (csrc/csr.cuh) ---------------------------------------
+
+# chunks of 3 lanes x 4 terms (and 2 x 5) here; the card's are 32 x 8
+CSR_CHUNKS = ((3, 4), (2, 5))
+CSR_SHAPES = {                      # kind: (row lengths, rows)
+    "one_row": ([211], 1),             # 18 chunks: 36 slots to walk
+    "empty_runs": ([0, 0, 3, 0, 0, 0, 5, 1, 0, 0, 13, 0, 2, 0, 0], 15),
+    "row_one_chunk": ([5, 7, 12, 12, 3], 5),
+    "row_on_chunk_last_term": ([11, 9, 3, 13, 1], 5),
+    "padding_past_last_row": ([4, 9, 2], 16),
+    "no_terms": ([0] * 10, 10),
+    "random_long_rows": (None, 40),
+}
+
+
+def _csr_case(kind):
+    """Terms sorted by row (int32 row ids, columns, coefficient ids), a
+    pool of 5 and an x of 23 Montgomery elements with 0 and r - 1 among
+    them, from a seed."""
+    from zkpos_tpu_torch.ops import field as F
+    lens, nrows = CSR_SHAPES[kind]
+    rng = np.random.default_rng(len(kind))
+    if lens is None:
+        lens = list(rng.integers(0, 6, nrows))
+        lens[5], lens[23] = 50, 29
+    T = int(sum(lens))
+    row = np.repeat(np.arange(len(lens)), lens).astype(np.int32)
+    col = rng.integers(0, 23, T).astype(np.int32)
+    cid = rng.integers(0, 5, T).astype(np.int32)
+    pool = F.to_mont(F.ints_to_tensor([1, bn.R - 1, 0] + _rand(2, bn.R, 5)))
+    x = F.to_mont(F.ints_to_tensor([bn.R - 1, 0] + _rand(21, bn.R, 6)))
+    return row, col, cid, pool, x, nrows
+
+
+@pytest.mark.parametrize("kind", list(CSR_SHAPES))
+def test_csr_chunks(harness, kind):
+    """The row evaluation's chunk logic (lane runs, the lanes' segmented
+    scan, the carries and their fix-up) at a few lanes and terms a lane,
+    bit for bit against ops/field.plain_csr_eval."""
+    from zkpos_tpu_torch.ops import field as F
+    row, col, cid, pool, x, nrows = _csr_case(kind)
+    want = F.plain_csr_eval(*(torch.from_numpy(a) for a in (row, col, cid)),
+                            pool, x, nrows)
+    pn, xn = _np(pool), _np(x)
+    for lanes, K in CSR_CHUNKS:
+        out = np.full((nrows, 8), 0x5A5A5A5A, dtype=np.uint32)
+        assert harness.rh_csr(lanes, K, row.ctypes.data, col.ctypes.data,
+                              cid.ctypes.data, pn.ctypes.data, xn.ctypes.data,
+                              len(row), nrows, out.ctypes.data) == 0
+        assert np.array_equal(out, _np(want)), (lanes, K)

@@ -4,6 +4,7 @@
 // tests/test_torch_rehearsal.py drives through ctypes.  It is a test aid,
 // not a path of the port.
 #include "field.cuh"
+#include "csr.cuh"
 #include "ec.cuh"
 #include "poseidon.cuh"
 #include "probes.cuh"
@@ -310,6 +311,56 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
     }
 }
 
+// Poseidon of n states of T lanes on the one-thread sparse schedule
+// (poseidon.cuh permute_wide, as k_wide runs it); K the width-T table.
+template <int T>
+void wide_rows(const uint32_t* st, const uint32_t* K, uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    uint32_t x[T][8];
+    for (int j = 0; j < T; ++j) pos::copy8(x[j], st + 8 * (T * i + j));
+    pos::permute_wide<T>(x, K);
+    pos::copy8(out + 8 * i, x[pos::kOutputIndex]);
+  }
+}
+
+// The row evaluation of csr.cuh on the host, as fr_kernels.cu strings it
+// together: out zeroed; chunks of `lanes` x K terms, each chunk's lanes
+// through lane_runs, the scan rounds (double-buffered, as in the warp's
+// exchange area) and lane_finish; then every carry slot through
+// fixup_item.  Returns 1 if a chunk left a carry slot unwritten.
+int csr_host(int lanes, int K, const csr::Terms& m, long long nrows,
+             uint32_t* out) {
+  const int kUnset = -2;
+  for (long long i = 0; i < 8 * nrows; ++i) out[i] = 0;
+  const long long chunk = (long long)lanes * K;
+  const long long C = (m.T + chunk - 1) / chunk;
+  std::vector<int> crow(2 * C, kUnset);
+  std::vector<uint32_t> cval(16 * C, 0xdeadbeefu);
+  std::vector<csr::Runs> L(lanes);
+  std::vector<int> hr(lanes), tr(lanes);
+  std::vector<uint32_t> v[2] = {std::vector<uint32_t>(8 * lanes),
+                                std::vector<uint32_t>(8 * lanes)};
+  for (long long c = 0; c < C; ++c) {
+    for (int l = 0; l < lanes; ++l) {
+      csr::lane_runs(L[l], m, c * chunk + (long long)l * K, K, out);
+      hr[l] = L[l].hr;
+      tr[l] = L[l].tr;
+      csr::copy8(&v[0][8 * l], L[l].ts);
+    }
+    int cur = 0;
+    for (int d = 1; d < lanes; d <<= 1, cur ^= 1)
+      for (int l = 0; l < lanes; ++l)
+        csr::scan_round(l, d, tr.data(), v[cur].data(), v[cur ^ 1].data());
+    for (int l = 0; l < lanes; ++l)
+      csr::lane_finish(L[l], l, lanes, hr.data(), tr.data(), v[cur].data(),
+                       &crow[2 * c], &cval[16 * c], out);
+    if (crow[2 * c] == kUnset || crow[2 * c + 1] == kUnset) return 1;
+  }
+  for (long long i = 0; i < 2 * C; ++i)
+    csr::fixup_item(i, 2 * C, crow.data(), cval.data(), nrows, out);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -450,6 +501,19 @@ int rh_poseidon_plain(int t, const uint32_t* st, const uint32_t* C,
   }
 }
 
+// n states of t lanes -> their digests on the one-thread sparse schedule
+// (t = 4, 6, 11 or 17); K is the width-t sparse table
+int rh_poseidon_wide(int t, const uint32_t* st, const uint32_t* K,
+                     uint32_t* out, long n) {
+  switch (t) {
+    case 4: wide_rows<4>(st, K, out, n); return 0;
+    case 6: wide_rows<6>(st, K, out, n); return 0;
+    case 11: wide_rows<11>(st, K, out, n); return 0;
+    case 17: wide_rows<17>(st, K, out, n); return 0;
+    default: return 1;
+  }
+}
+
 // One chain of n inputs on a host warp, by the chain kernel's schedule
 // (poseidon.cuh chain_warp); K17 and Kt are the sparse tables of width 17
 // and of the chain's narrower block.
@@ -541,6 +605,16 @@ void rh_probe_scan(int na, int comb, int recurse, const uint32_t* in,
                    const uint8_t* heads, uint32_t* out, long n, int K) {
   if (na == 3) scan_stage<Fp1>(comb, recurse, in, heads, out, n, K);
   else scan_stage<Fp2>(comb, recurse, in, heads, out, n, K);
+}
+
+// csr.cuh's row evaluation on the host (csr_host) at `lanes` x K terms a
+// chunk: out (nrows, 8) from the T terms (row, col, cid); returns 1 if a
+// chunk left a carry slot unwritten
+int rh_csr(int lanes, int K, const int* row, const int* col, const int* cid,
+           const uint32_t* pool, const uint32_t* x, long long T,
+           long long nrows, uint32_t* out) {
+  return csr_host(lanes, K, csr::Terms{row, col, cid, pool, x, T}, nrows,
+                  out);
 }
 
 // seg_scan.cuh on the host (seg_host): sums = 1 for seg_sums, 0 for

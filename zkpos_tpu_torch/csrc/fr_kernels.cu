@@ -1,5 +1,5 @@
 // Field kernels over Fr and Fp: elementwise Montgomery arithmetic, one
-// radix-2 NTT stage, and a CSR row evaluation (sum of coefficient-times-
+// radix-2 NTT stage, and the QAP row evaluation (sum of coefficient-times-
 // value terms per row).
 //
 // These are not ports of Pallas kernels: on the TPU the NTT and the QAP
@@ -16,10 +16,24 @@
 // bound.  The design keeps one element per thread with all limbs in
 // registers, loads and stores 16 bytes at a time, and uses no shared
 // memory; the NTT stage reads each butterfly pair once and writes it
-// once.  The CSR evaluation runs one thread per row, so a long row
-// serialises in one thread (a warp per long row is the known next step).
+// once.
+//
+// The row evaluation is bound by its bytes: per term a row id, a column
+// and a coefficient id (12 B) and two gathered elements (64 B), 32 B a
+// row out.  It splits the terms evenly, one warp a chunk of 32 x kCsrK
+// terms, whatever rows they fall in (csr.cuh), so a long row -- the
+// prove's lookup rows run to 16,385 terms -- is spread over many warps
+// instead of serialised on one thread, as the one-thread-a-row kernel it
+// replaces did (24.3 ms for the prove's A matrix on an H100, PERF.md).  It uploads a row id
+// per term (the JAX package's term-parallel form had one too) rather than
+// searching the row pointers: every lane then forms exactly kCsrK products
+// with no divergence between products and row ends, for 4 more bytes a
+// term.  Rows with no term are zeroed by a memset first.  A row through
+// many chunks costs the fix-up one walk over its carry slots, kWalk at a
+// time (csr.cuh).
 #include <cuda_runtime.h>
 
+#include "csr.cuh"
 #include "field.cuh"
 
 using namespace ff;
@@ -95,22 +109,45 @@ __global__ void k_ntt_stage(uint32_t* a, const uint32_t* tw, long long nbfly,
   st8(a + 8 * i1, v);
 }
 
-// out[r] = sum over t in [rowptr[r], rowptr[r+1]) of pool[cid[t]] * x[col[t]]
-__global__ void k_csr_eval(uint32_t* out, const long long* rowptr,
-                           const int* col, const int* cid,
-                           const uint32_t* pool, const uint32_t* x,
-                           long long nrows) {
-  long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= nrows) return;
-  uint32_t acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  uint32_t c[8], v[8], p[8];
-  for (long long t = rowptr[r]; t < rowptr[r + 1]; ++t) {
-    ld8(c, pool + 8 * (long long)cid[t]);
-    ld8(v, x + 8 * (long long)col[t]);
-    ff::mul<Fr>(p, c, v);
-    ff::add<Fr>(acc, acc, p);
+// The row evaluation (csr.cuh): one warp a chunk of 32 x kCsrK terms,
+// kCsrWarps chunks a block, each warp with its exchange area in shared
+// memory; then one thread a carry slot.
+const int kCsrK = 8;
+const int kCsrChunk = 32 * kCsrK;
+const int kCsrWarps = 4;
+
+struct CsrExchange {
+  int hr[32], tr[32];
+  uint32_t v[2][32][8];
+};
+
+__global__ void __launch_bounds__(32 * kCsrWarps)
+k_csr_eval(csr::Terms m, long long chunks, int* crow, uint32_t* cval,
+           uint32_t* out) {
+  __shared__ __align__(16) CsrExchange ex[kCsrWarps];
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  const long long c = (long long)blockIdx.x * kCsrWarps + w;
+  if (c >= chunks) return;               // whole warps leave together
+  CsrExchange& e = ex[w];
+  csr::Runs L;
+  csr::lane_runs(L, m, c * kCsrChunk + (long long)l * kCsrK, kCsrK, out);
+  e.hr[l] = L.hr;
+  e.tr[l] = L.tr;
+  csr::st8(e.v[0][l], L.ts);
+  __syncwarp();
+  int cur = 0;
+  for (int d = 1; d < 32; d <<= 1, cur ^= 1) {
+    csr::scan_round(l, d, e.tr, &e.v[cur][0][0], &e.v[cur ^ 1][0][0]);
+    __syncwarp();
   }
-  st8(out + 8 * r, acc);
+  csr::lane_finish(L, l, 32, e.hr, e.tr, &e.v[cur][0][0], crow + 2 * c,
+                   cval + 16 * c, out);
+}
+
+__global__ void k_csr_fixup(const int* crow, const uint32_t* cval,
+                            long long n, long long nrows, uint32_t* out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) csr::fixup_item(i, n, crow, cval, nrows, out);
 }
 
 template <int OP>
@@ -167,13 +204,33 @@ int zk_ntt_stage(void* a, const void* tw, long long n, long long half,
   return (int)cudaGetLastError();
 }
 
-int zk_csr_eval(void* out, const void* rowptr, const void* col,
-                const void* cid, const void* pool, const void* x,
-                long long nrows, void* stream) {
-  if (nrows > 0)
-    k_csr_eval<<<grid_for(nrows, 128), 128, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const long long*)rowptr, (const int*)col,
-        (const int*)cid, (const uint32_t*)pool, (const uint32_t*)x, nrows);
+// Carry chunks of a row evaluation over T terms: the scratch holds 2 of
+// them a chunk (a row id, and 8 limbs).
+long long zk_csr_chunks(long long T) {
+  return (T + kCsrChunk - 1) / kCsrChunk;
+}
+
+// out (nrows, 8) = the row sums of the T terms (row, col, cid ascending by
+// row, every row below nrows); crow (2 chunks) and cval (2 chunks x 8) are
+// scratch.
+int zk_csr_eval(void* out, const void* row, const void* col, const void* cid,
+                const void* pool, const void* x, long long nrows, long long T,
+                void* crow, void* cval, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nrows > 0) {
+    cudaError_t e = cudaMemsetAsync(out, 0, 32 * nrows, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long chunks = zk_csr_chunks(T);
+  if (chunks > 0) {
+    csr::Terms m{(const int*)row, (const int*)col, (const int*)cid,
+                 (const uint32_t*)pool, (const uint32_t*)x, T};
+    k_csr_eval<<<grid_for(chunks, kCsrWarps), 32 * kCsrWarps, 0, s>>>(
+        m, chunks, (int*)crow, (uint32_t*)cval, (uint32_t*)out);
+    k_csr_fixup<<<grid_for(2 * chunks, kBlock), kBlock, 0, s>>>(
+        (const int*)crow, (const uint32_t*)cval, 2 * chunks, nrows,
+        (uint32_t*)out);
+  }
   return (int)cudaGetLastError();
 }
 

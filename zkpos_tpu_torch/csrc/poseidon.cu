@@ -1,13 +1,14 @@
 // Poseidon over BN254 Fr on the card: the account tree's node hash, the
-// plain-schedule permutation at every width, and whole hash chains.
+// permutation at every width (plain schedule at t = 2, 3, sparse at
+// t = 4..17), and whole hash chains.
 //
 // Replaces zkpos_tpu/ops/poseidon_f32_pallas.py:_perm2_kernel (the
 // sparse-MDS Poseidon(2) behind hash2_mont_f32p: zk_poseidon_sparse3) and
 // zkpos_tpu/ops/poseidon_pallas.py:_hash2_kernel (the plain-schedule
 // Poseidon(2) behind hash2_mont_pallas: zk_poseidon_plain at t = 3).  At
-// t = 6 and 17, zk_poseidon_plain and zk_poseidon_chain take the place of
-// what zkpos_tpu/ops/poseidon.py ran as XLA code (hash_n_mont and the
-// lax.scan of hash_chain_mont).  The TPU kernels emulated 256-bit products
+// t = 4..17, zk_poseidon_sparse and zk_poseidon_chain take the place of
+// what zkpos_tpu/ops/poseidon.py ran as XLA code (permute, hash_n_mont and
+// the lax.scan of hash_chain_mont).  The TPU kernels emulated 256-bit products
 // with bf16 matmuls over 8-bit digits and kept a lazy (1 + e)p bound; here
 // a thread runs the fully reduced 8 x 32-bit CIOS product of field.cuh on
 // the integer pipes.
@@ -22,6 +23,20 @@
 // (PERF.md, one H100 run), 91 % of the bound at the measured multiply
 // rate; two or four hashes a thread, for independent products, were slower
 // (1,217 and 1,357 ms: the probes path's split_hashes2 / split_hashes4).
+//
+// zk_poseidon_sparse (k_wide): one permutation a thread at t = 4..17 on the
+// sparse schedule (poseidon.cuh permute_wide), for the account leaves
+// (t = 6) and the blocks of their asset commitments (t = 17 and a
+// narrower tail), all accounts of a tier side by side.  Bounded by integer
+// multiplies: 5,424 products a t = 17 permutation, 4.2 times fewer than
+// the plain schedule it replaces at these widths.  The state (t x 32 B,
+// 544 B at t = 17) sits in the stack frame with the lane loops rolled, as
+// the plain kernel's did, so a round's code stays a few products long;
+// the tables are read at one address across the warp (a broadcast from
+// the read-only cache).  A partial round has 2(t - 1) independent
+// products, two a step of its lane loop.  The leaf launches are small
+// (59,340 permutations, about 450 threads an SM), so the design cannot
+// count on many resident warps to hide a product's latency.
 //
 // zk_poseidon_chain: one warp per chain, every chain of a launch side by
 // side (the CEX commitments of a run of batches).  A chain is 667
@@ -50,6 +65,9 @@ namespace {
 
 const int kBlock = 128;
 const int kSparseBlock = 1024;
+// k_wide: threads a block (probes/poseidon_variants.py times other
+// choices)
+const int kWideBlock = 128;
 const int kChainWarps = 4;
 const unsigned kFullMask = 0xffffffffu;
 
@@ -93,7 +111,8 @@ k_sparse3(uint32_t* out, const uint32_t* a, const uint32_t* b, long long n,
   if (i < n) st8(out + 8 * i, x[0][kOutputIndex]);
 }
 
-// out[i] = lane kOutputIndex of the permuted state st[i] (T lanes).
+// out[i] = lane kOutputIndex of the permuted state st[i] (T lanes), on
+// the plain schedule (T = 2, 3).
 template <int T>
 __global__ void k_plain(uint32_t* out, const uint32_t* st, long long n,
                         const uint32_t* C, const uint32_t* M) {
@@ -112,6 +131,36 @@ int launch_plain(void* out, const void* st, long long n, const void* C,
     k_plain<T><<<grid_for(n, kBlock), kBlock, 0, (cudaStream_t)stream>>>(
         (uint32_t*)out, (const uint32_t*)st, n, (const uint32_t*)C,
         (const uint32_t*)M);
+  return (int)cudaGetLastError();
+}
+
+// out[i] = lane kOutputIndex of the permuted state st[i] (T = 4..17
+// lanes), on the sparse schedule of the width-T table K (permute_wide),
+// one permutation a thread.  Every partial round ends at a block barrier,
+// so no thread leaves early: a thread past n permutes zeros and stores
+// nothing.  The state sits in the thread's stack frame (local memory:
+// 32 T bytes, and as much again for the mix's result); in shared memory
+// it was no faster on an H100 (probes/poseidon_variants.py, smem).
+template <int T>
+__global__ void __launch_bounds__(kWideBlock)
+k_wide(uint32_t* out, const uint32_t* st, long long n, const uint32_t* K) {
+  const long long i = (long long)blockIdx.x * kWideBlock + threadIdx.x;
+  uint32_t x[T][8];
+  for (int j = 0; j < T; ++j) {
+    if (i < n) ld8(x[j], st + 8 * (T * i + j));
+    else zero8(x[j]);
+  }
+  permute_wide<T>(x, K);
+  if (i < n) st8(out + 8 * i, x[kOutputIndex]);
+}
+
+template <int T>
+int launch_wide(void* out, const void* st, long long n, const void* K,
+                void* stream) {
+  if (n > 0)
+    k_wide<T><<<grid_for(n, kWideBlock), kWideBlock, 0,
+                (cudaStream_t)stream>>>((uint32_t*)out, (const uint32_t*)st,
+                                        n, (const uint32_t*)K);
   return (int)cudaGetLastError();
 }
 
@@ -198,26 +247,36 @@ int zk_poseidon_sparse3(void* out, const void* a, const void* b, long long n,
   return (int)cudaGetLastError();
 }
 
-// st: n states of t lanes, (n, t, 8); C: (8 + R_P) x t entries; M: t x t.
+// st: n states of t = 2 or 3 lanes, (n, t, 8); C: (8 + R_P) x t entries;
+// M: t x t.
 int zk_poseidon_plain(int t, void* out, const void* st, long long n,
                       const void* C, const void* M, void* stream) {
   switch (t) {
     case 2: return launch_plain<2>(out, st, n, C, M, stream);
     case 3: return launch_plain<3>(out, st, n, C, M, stream);
-    case 4: return launch_plain<4>(out, st, n, C, M, stream);
-    case 5: return launch_plain<5>(out, st, n, C, M, stream);
-    case 6: return launch_plain<6>(out, st, n, C, M, stream);
-    case 7: return launch_plain<7>(out, st, n, C, M, stream);
-    case 8: return launch_plain<8>(out, st, n, C, M, stream);
-    case 9: return launch_plain<9>(out, st, n, C, M, stream);
-    case 10: return launch_plain<10>(out, st, n, C, M, stream);
-    case 11: return launch_plain<11>(out, st, n, C, M, stream);
-    case 12: return launch_plain<12>(out, st, n, C, M, stream);
-    case 13: return launch_plain<13>(out, st, n, C, M, stream);
-    case 14: return launch_plain<14>(out, st, n, C, M, stream);
-    case 15: return launch_plain<15>(out, st, n, C, M, stream);
-    case 16: return launch_plain<16>(out, st, n, C, M, stream);
-    case 17: return launch_plain<17>(out, st, n, C, M, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// st: n states of t = 4..17 lanes, (n, t, 8); K: the width-t sparse table
+// (struct Sparse).
+int zk_poseidon_sparse(int t, void* out, const void* st, long long n,
+                       const void* K, void* stream) {
+  switch (t) {
+    case 4: return launch_wide<4>(out, st, n, K, stream);
+    case 5: return launch_wide<5>(out, st, n, K, stream);
+    case 6: return launch_wide<6>(out, st, n, K, stream);
+    case 7: return launch_wide<7>(out, st, n, K, stream);
+    case 8: return launch_wide<8>(out, st, n, K, stream);
+    case 9: return launch_wide<9>(out, st, n, K, stream);
+    case 10: return launch_wide<10>(out, st, n, K, stream);
+    case 11: return launch_wide<11>(out, st, n, K, stream);
+    case 12: return launch_wide<12>(out, st, n, K, stream);
+    case 13: return launch_wide<13>(out, st, n, K, stream);
+    case 14: return launch_wide<14>(out, st, n, K, stream);
+    case 15: return launch_wide<15>(out, st, n, K, stream);
+    case 16: return launch_wide<16>(out, st, n, K, stream);
+    case 17: return launch_wide<17>(out, st, n, K, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,9 @@
 // Poseidon permutations over BN254 Fr on field.cuh: the plain round
-// schedule at every width T = 2..17, the sparse-MDS schedule at T = 3
-// (the tree's node hash; H hashes a thread), and the sparse-MDS schedule at
-// any width on one warp (the hash chains), written once over the warp's
-// exchanges so that g++ runs it with one host thread per lane.
+// schedule (the node hash at T = 3), the sparse-MDS schedule at T = 3
+// (the tree's node hash; H hashes a thread), at T = 4..17 on one thread
+// (the leaf hashes and the asset commitments' blocks), and at any width on
+// one warp (the hash chains), written once over the warp's exchanges so
+// that g++ runs it with one host thread per lane.
 //
 // Elements are 8 x 32-bit limbs in Montgomery form (R = 2^256), fully
 // reduced after every operation, so each function here computes exactly
@@ -360,6 +361,90 @@ FF_HD void permute_sparse3(uint32_t (*x)[3][8], const uint32_t* K) {
   POS_ROLLED
   for (int r = 0; r < kHalfFull; ++r)
     full3<H>(x, K, r < kHalfFull - 1 ? K + 8 * (kCFull2 + T * r) : 0);
+}
+
+// --- sparse-MDS schedule at width T = 4..17, one permutation a thread -------
+//
+// The permutation of x (T lanes of 8 limbs) on the width-T table of struct
+// Sparse, as the chain kernel's warp runs it but on one thread: 8(3T + T^2)
+// + 3 R_P + (R_P - 1)(2T - 1) + T^2 products (5,424 at T = 17) where the
+// plain schedule takes 8(3T + T^2) + R_P(3 + T^2) (22,576).  The lane loops
+// stay rolled, as in permute_sparse3, so the state sits in the thread's
+// stack frame and a round's code is a few products long.  In a partial
+// round the loop over lanes 1..T-1 forms two independent products a step,
+// v_j x_j for the new x_0 and w_j x_0^5 for x_j.  block_sync() at every
+// partial round keeps the warps of a block in the same round (as
+// permute_sparse3<H, true>), so every thread of the block must call it:
+// none may leave early.
+
+// x <- M x (M: T x T by rows)
+template <int T>
+FF_HD void mix_wide(uint32_t (*x)[8], const uint32_t* M) {
+  uint32_t nx[T][8];
+  POS_ROLLED
+  for (int i = 0; i < T; ++i) {
+    zero8(nx[i]);
+    POS_ROLLED
+    for (int j = 0; j < T; ++j) fma_c(nx[i], M + 8 * (T * i + j), x[j]);
+  }
+  POS_ROLLED
+  for (int i = 0; i < T; ++i) copy8(x[i], nx[i]);
+}
+
+// every lane's S-box, the mix by M, then the constants c (T entries), if
+// any
+template <int T>
+FF_HD void full_wide(uint32_t (*x)[8], const uint32_t* M, const uint32_t* c) {
+  POS_ROLLED
+  for (int i = 0; i < T; ++i) sbox(x[i]);
+  mix_wide<T>(x, M);
+  if (c) {
+    POS_ROLLED
+    for (int i = 0; i < T; ++i) add_c(x[i], c + 8 * i);
+  }
+}
+
+template <int T>
+FF_HD void permute_wide(uint32_t (*x)[8], const uint32_t* K) {
+  constexpr Sparse L(T);
+  POS_ROLLED
+  for (int i = 0; i < T; ++i) add_c(x[i], K + 8 * (L.c_init() + i));
+  POS_ROLLED
+  for (int r = 0; r < kHalfFull; ++r)
+    full_wide<T>(x, K + 8 * L.mds(),
+                 r < kHalfFull - 1 ? K + 8 * L.c_full(r) : 0);
+  add_c(x[0], K + 8 * L.d(0));
+  POS_ROLLED
+  for (int i = 0; i < L.rp - 1; ++i) {
+    block_sync();
+    // x_0 <- m00 x_0^5 + sum_j v_j x_j + d_(i+1); x_j += w_j x_0^5
+    const uint32_t* row = K + 8 * L.row(i);
+    uint32_t y[8];
+    sbox(x[0]);
+    zero8(y);
+    fma_c(y, row, x[0]);
+    POS_ROLLED
+    for (int j = 1; j < T; ++j) {
+      uint32_t a[8], b[8], kv[8], kw[8];
+      ldc(kv, row + 8 * j);
+      ldc(kw, row + 8 * (T - 1 + j));
+      ff::mul<Fr>(a, kv, x[j]);
+      ff::mul<Fr>(b, kw, x[0]);
+      ff::add<Fr>(y, y, a);
+      ff::add<Fr>(x[j], x[j], b);
+    }
+    copy8(x[0], y);
+    add_c(x[0], K + 8 * L.d(i + 1));
+  }
+  // the last partial round mixes with one dense matrix
+  sbox(x[0]);
+  mix_wide<T>(x, K + 8 * L.dense());
+  POS_ROLLED
+  for (int i = 0; i < T; ++i) add_c(x[i], K + 8 * (L.c_resume() + i));
+  POS_ROLLED
+  for (int r = 0; r < kHalfFull; ++r)
+    full_wide<T>(x, K + 8 * L.mds(),
+                 r < kHalfFull - 1 ? K + 8 * L.c_full2(r) : 0);
 }
 
 // --- sparse-MDS schedule at any width, on one warp ---------------------------

@@ -92,19 +92,17 @@ def _next_pow2(n: int) -> int:
     return m
 
 
-def _by_var(cs, which: int, nv: int, device):
-    """CSR of matrix `which` by VARIABLE: for setup's A_i(tau) = sum over
-    the constraints c using wire i of coeff * L_c(tau)."""
+def _by_var(cs, which: int, device):
+    """The terms of matrix `which` by VARIABLE, for setup's A_i(tau) = sum
+    over the constraints c using wire i of coeff * L_c(tau): variable,
+    constraint and coefficient id, each (T,) int32, sorted by variable."""
     cache = _cs_cache(cs)
     key = ("vars", which, str(device))
     if key not in cache:
         rows, vars_, cids = _matrix_arrays(cs, which)
         order = np.argsort(vars_, kind="stable")
-        counts = np.bincount(vars_, minlength=nv)
-        rowptr = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
-        cache[key] = (torch.from_numpy(rowptr).to(device),
-                      torch.from_numpy(rows[order].astype(np.int32)).to(device),
-                      torch.from_numpy(cids[order]).to(device))
+        cache[key] = tuple(torch.from_numpy(a[order].astype(np.int32))
+                           .to(device) for a in (vars_, rows, cids))
     return cache[key]
 
 
@@ -124,7 +122,7 @@ def _qap_evals(cs, tau: int, device):
                 F.const(z_tau * pow(d, MOD - 2, MOD) % MOD, F.FR, device))
     pool = pool_mont(cs, device)
     nv = cs.num_vars
-    evals = [F.csr_eval(*_by_var(cs, which, nv, device), pool, lag)
+    evals = [F.csr_eval(*_by_var(cs, which, device), pool, lag, nv)
              for which in range(3)]
     return evals[0], evals[1], evals[2], z_tau, d
 

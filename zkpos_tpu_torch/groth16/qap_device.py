@@ -2,7 +2,8 @@
 
 Counterpart of zkpos_tpu/groth16/qap_device.py.  The per-constraint linear
 combinations Az, Bz and Cz are one CSR row evaluation each
-(ops/field.csr_eval over the flattened constraint matrices); then the
+(ops/field.csr_eval over the flattened constraint matrices, the terms
+split evenly over the card whatever rows they fall in); then the
 seven NTTs of gnark's H pipeline (prover.go:269): 3 inverse, 3 coset
 forward, the pointwise (A*B - C)/Z on the coset, 1 coset inverse.
 """
@@ -72,17 +73,15 @@ def pool_mont(cs, device) -> torch.Tensor:
     return cache[key]
 
 
-def _row_csr(cs, which: int, nrows: int, device):
-    """CSR of matrix `which` by constraint, padded to `nrows` rows."""
+def _row_terms(cs, which: int, device):
+    """The terms of matrix `which` on `device`: constraint row, variable
+    and coefficient id, each (T,) int32, sorted by row."""
     cache = _cs_cache(cs)
-    key = ("rows", which, nrows, str(device))
+    key = ("terms", which, str(device))
     if key not in cache:
         rows, vars_, cids = _matrix_arrays(cs, which)
-        counts = np.bincount(rows, minlength=nrows)
-        rowptr = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
-        cache[key] = (torch.from_numpy(rowptr).to(device),
-                      torch.from_numpy(vars_).to(device),
-                      torch.from_numpy(cids).to(device))
+        cache[key] = tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                           for a in (rows, vars_, cids))
     return cache[key]
 
 
@@ -90,8 +89,8 @@ def eval_matrix_device(cs, z_mont: torch.Tensor, which: int,
                        d: int) -> torch.Tensor:
     """(d, 8) Montgomery: row c holds sum_i M[c, i] * z_i (0 past the last
     constraint)."""
-    rowptr, col, cid = _row_csr(cs, which, d, z_mont.device)
-    return F.csr_eval(rowptr, col, cid, pool_mont(cs, z_mont.device), z_mont)
+    row, col, cid = _row_terms(cs, which, z_mont.device)
+    return F.csr_eval(row, col, cid, pool_mont(cs, z_mont.device), z_mont, d)
 
 
 @lru_cache(maxsize=None)

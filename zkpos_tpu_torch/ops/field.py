@@ -309,7 +309,7 @@ def ntt_stage(a: torch.Tensor, tw: torch.Tensor, half: int,
     count_launch("ntt_stage", a.shape[0])
 
 
-# --- CSR row evaluation --------------------------------------------------------
+# --- the QAP row evaluation ------------------------------------------------------
 
 def _reduce_wide16(s: torch.Tensor, field: int) -> torch.Tensor:
     """Lazy non-negative limbs (N, K > 16), each below 2^62 -> value mod p
@@ -332,40 +332,42 @@ def _reduce_wide16(s: torch.Tensor, field: int) -> torch.Tensor:
     return r
 
 
-def plain_csr_eval(rowptr: torch.Tensor, col: torch.Tensor,
-                   cid: torch.Tensor, pool: torch.Tensor,
-                   x: torch.Tensor) -> torch.Tensor:
-    nrows = rowptr.shape[0] - 1
-    counts = rowptr[1:] - rowptr[:-1]
+def plain_csr_eval(row: torch.Tensor, col: torch.Tensor, cid: torch.Tensor,
+                   pool: torch.Tensor, x: torch.Tensor,
+                   nrows: int) -> torch.Tensor:
     out16 = torch.zeros((nrows, 20), dtype=torch.int64, device=x.device)
     if col.shape[0]:
         prods = plain_mul(pool[cid.long()], x[col.long()])
-        rows = torch.repeat_interleave(
-            torch.arange(nrows, device=x.device), counts)
-        out16[:, :16].index_add_(0, rows, _to16(prods))
+        out16[:, :16].index_add_(0, row.long(), _to16(prods))
     return _from16(_reduce_wide16(out16, FR))
 
 
-def csr_eval(rowptr: torch.Tensor, col: torch.Tensor, cid: torch.Tensor,
-             pool: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """out[r] = sum over the terms t of row r of pool[cid[t]] * x[col[t]]
-    (Fr, Montgomery).  rowptr: (R + 1,) int64; col, cid: (T,) int32."""
+def csr_eval(row: torch.Tensor, col: torch.Tensor, cid: torch.Tensor,
+             pool: torch.Tensor, x: torch.Tensor, nrows: int) -> torch.Tensor:
+    """out[r] = sum over the terms t with row[t] = r of
+    pool[cid[t]] * x[col[t]] (Fr, Montgomery), for r < nrows; rows with no
+    term are 0.  row, col, cid: (T,) int32, the terms sorted by row (every
+    row below nrows)."""
     _check_fe(pool, x)
     if x.device.type == "cpu":
-        return plain_csr_eval(rowptr, col, cid, pool, x)
-    nrows = rowptr.shape[0] - 1
+        return plain_csr_eval(row, col, cid, pool, x, nrows)
+    for t in (row, col, cid):
+        if (t.dtype != torch.int32 or t.device != x.device
+                or not t.is_contiguous() or t.shape != col.shape):
+            raise ValueError("csr terms: contiguous int32 row, col and cid "
+                             "of one length, on the operand's device")
     out = torch.empty((nrows, 8), dtype=torch.int32, device=x.device)
-    for t, dt in ((rowptr, torch.int64), (col, torch.int32),
-                  (cid, torch.int32)):
-        if t.dtype != dt or t.device != x.device or not t.is_contiguous():
-            raise ValueError("csr arrays: int64 rowptr, int32 col/cid, "
-                             "contiguous, on the operand's device")
     L = build.cuda_lib()
-    build.check(L.zk_csr_eval(build.ptr(out), build.ptr(rowptr),
+    T = col.shape[0]
+    chunks = L.zk_csr_chunks(T)
+    crow = torch.empty((2 * chunks,), dtype=torch.int32, device=x.device)
+    cval = torch.empty((2 * chunks, 8), dtype=torch.int32, device=x.device)
+    build.check(L.zk_csr_eval(build.ptr(out), build.ptr(row),
                               build.ptr(col), build.ptr(cid),
-                              build.ptr(pool), build.ptr(x), nrows,
+                              build.ptr(pool), build.ptr(x), nrows, T,
+                              build.ptr(crow), build.ptr(cval),
                               build.stream_ptr(x)), "csr_eval")
-    count_launch("csr_eval", col.shape[0])
+    count_launch("csr_eval", T)
     return out
 
 

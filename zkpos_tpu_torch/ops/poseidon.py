@@ -10,7 +10,10 @@ its lane OUTPUT_INDEX.
 Wrappers and their kernels (csrc/poseidon.cu):
 
 * ``permute`` / ``hash_n_mont`` / ``hash2_mont``: one thread per
-  permutation, ``zk_poseidon_plain`` (launch name ``poseidon_plain_t{t}``);
+  permutation; at t = 2, 3 on the plain schedule, ``zk_poseidon_plain``
+  (launch name ``poseidon_plain_t{t}``), at t = 4..17 on the sparse one,
+  ``zk_poseidon_sparse`` (``poseidon_sparse_t{t}``, plain version
+  ops/poseidon_sparse.plain_permute_sparse);
 * ``hash_chain_mont``: the chaining rule for more than 16 inputs as one
   ``permute`` per block, many columns side by side (the leaf commitments);
 * ``chain_mont``: whole chains in one launch, one warp per chain, on the
@@ -147,23 +150,43 @@ def _check_rows(x: torch.Tensor, dims: int) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
+# widths at and above this run the sparse schedule (k_wide)
+SPARSE_FROM = 4
+
+
+def kernel_name(t: int) -> str:
+    """The launch name of ``permute`` at width t."""
+    kind = "sparse" if t >= SPARSE_FROM else "plain"
+    return f"poseidon_{kind}_t{t}"
+
+
 def permute(state: torch.Tensor) -> torch.Tensor:
     """Poseidon permutation of each (t, 8) state of a (B, t, 8) batch,
     Montgomery form, 2 <= t <= 17: returns the digest lane OUTPUT_INDEX of
-    each permuted state, (B, 8)."""
+    each permuted state, (B, 8).  The plain schedule at t = 2, 3, the
+    sparse one above (the same digests)."""
+    from .poseidon_sparse import plain_permute_sparse, table
     _check_rows(state, 3)
     t = state.shape[1]
     pp.partial_rounds(t)                          # raises on a bad width
+    sparse = t >= SPARSE_FROM
     if state.device.type == "cpu":
-        return plain_permute(state)
+        return plain_permute_sparse(state) if sparse else plain_permute(state)
     n = state.shape[0]
     out = torch.empty((n, 8), dtype=torch.int32, device=state.device)
-    c, m = tables(t, str(state.device))
+    dev = str(state.device)
     L = build.cuda_lib()
-    name = f"poseidon_plain_t{t}"
-    build.check(L.zk_poseidon_plain(t, build.ptr(out), build.ptr(state), n,
-                                    build.ptr(c), build.ptr(m),
-                                    build.stream_ptr(state)), name)
+    name = kernel_name(t)
+    if sparse:
+        rc = L.zk_poseidon_sparse(t, build.ptr(out), build.ptr(state), n,
+                                  build.ptr(table(dev, t)),
+                                  build.stream_ptr(state))
+    else:
+        c, m = tables(t, dev)
+        rc = L.zk_poseidon_plain(t, build.ptr(out), build.ptr(state), n,
+                                 build.ptr(c), build.ptr(m),
+                                 build.stream_ptr(state))
+    build.check(rc, name)
     F.count_launch(name, n)
     return out
 

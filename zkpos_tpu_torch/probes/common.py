@@ -4,7 +4,9 @@ variant reports."""
 
 from __future__ import annotations
 
+import os
 import re
+import shutil
 import subprocess
 import time
 
@@ -85,6 +87,38 @@ def max_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| / |b| over the elements (b the plain version)."""
     d = (a.double() - b.double()).abs()
     return float((d / b.double().abs().clamp_min(1e-30)).max())
+
+
+def variant_sources(script: str, name: str, csrc: str, subs=()) -> str:
+    """A directory (under the build directory, by script and variant name)
+    with csrc's headers and sources, each (file, old, new) of `subs`
+    substituted; raises unless `file` holds `old` exactly once."""
+    out = os.path.join(build.BUILD, script, name)
+    os.makedirs(out, exist_ok=True)
+    for f in os.listdir(csrc):
+        if f.endswith((".cuh", ".cu")):
+            shutil.copy(os.path.join(csrc, f), out)
+    for source, old, new in subs:
+        path = os.path.join(out, source)
+        with open(path) as fh:
+            text = fh.read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{source} no longer holds {old!r} once")
+        with open(path, "w") as fh:
+            fh.write(text.replace(old, new))
+    return out
+
+
+def build_variant(src: str, source: str, done: dict, name: str) -> None:
+    """nvcc `source` of the directory `src` alone into a shared library:
+    done[name] = (return code, ptxas log, seconds, library path)."""
+    so = os.path.join(src, os.path.splitext(source)[0] + ".so")
+    t0 = time.time()
+    p = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
+                        "-I", src, "-o", so, os.path.join(src, source)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    done[name] = (p.returncode, p.stdout, time.time() - t0, so)
 
 
 def kernel_resources(pattern: str, log: str = None) -> dict:

@@ -28,14 +28,11 @@ import argparse
 import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
 import threading
-import time
 
 from ..utils import build
-from .common import kernel_resources, smi
+from .common import build_variant, kernel_resources, smi, variant_sources
 
 N = {3: 2_097_151, 6: 1_924_679}
 KMIN = "struct Shape<Fp2> { static const int kBlock = 128, kMin = 2; }"
@@ -44,31 +41,9 @@ G2_KMIN = (3, 4)                 # the current kernel's is 2
 
 def _sources(name: str, csrc: str, kmin=None) -> str:
     """A directory with csrc's headers and ec_add.cu, kMin substituted."""
-    out = os.path.join(build.BUILD, "ec_variants", name)
-    os.makedirs(out, exist_ok=True)
-    for f in os.listdir(csrc):
-        if f.endswith((".cuh", ".cu")):
-            shutil.copy(os.path.join(csrc, f), out)
-    if kmin is not None:
-        path = os.path.join(out, "ec_add.cu")
-        with open(path) as fh:
-            text = fh.read()
-        if KMIN not in text:
-            raise RuntimeError("ec_add.cu no longer declares " + KMIN)
-        with open(path, "w") as fh:
-            fh.write(text.replace(KMIN, KMIN.replace("kMin = 2",
-                                                     f"kMin = {kmin}")))
-    return out
-
-
-def _build(src: str, done: dict, name: str) -> None:
-    so = os.path.join(src, "libec.so")
-    t0 = time.time()
-    p = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
-                        "-I", src, "-o", so, os.path.join(src, "ec_add.cu")],
-                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                       text=True)
-    done[name] = (p.returncode, p.stdout, time.time() - t0, so)
+    subs = (() if kmin is None else
+            (("ec_add.cu", KMIN, KMIN.replace("kMin = 2", f"kMin = {kmin}")),))
+    return variant_sources("ec_variants", name, csrc, subs)
 
 
 def _resources(log: str) -> dict:
@@ -93,7 +68,8 @@ def main(argv=None) -> int:
         srcs["parent"] = _sources("parent", os.path.join(
             args.parent, "zkpos_tpu_torch", "csrc"))
     done = {}
-    threads = [threading.Thread(target=_build, args=(s, done, n))
+    threads = [threading.Thread(target=build_variant,
+                                args=(s, "ec_add.cu", done, n))
                for n, s in srcs.items()]
     for th in threads:
         th.start()

@@ -117,7 +117,7 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_ff_binary": [I, I, V, V, V, LL, I, I, V],
                 "zk_ff_pow": [I, V, V, V, V, LL, V],
                 "zk_ntt_stage": [V, V, LL, LL, LL, V],
-                "zk_csr_eval": [V, V, V, V, V, V, LL, V],
+                "zk_csr_eval": [V, V, V, V, V, V, LL, LL, V, V, V],
                 "zk_g1_add": [V, V, V, LL, I, V],
                 "zk_g2_add": [V, V, V, LL, I, V],
                 "zk_g1_horner": [V, V, I, I, V],
@@ -126,6 +126,7 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_seg_sums": [I, V, V, V, V, LL, V],
                 "zk_poseidon_sparse3": [V, V, V, LL, LL, V, V],
                 "zk_poseidon_plain": [I, V, V, LL, V, V, V],
+                "zk_poseidon_sparse": [I, V, V, LL, V, V],
                 "zk_poseidon_chain": [V, V, LL, I, V, I, V, I, V],
                 "zk_probe_rate": [I, V, V, V, LL, I, V],
                 "zk_probe_conv": [I, V, V, V, LL, V],
@@ -142,6 +143,8 @@ def cuda_lib() -> ctypes.CDLL:
                 fn = getattr(L, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+            L.zk_csr_chunks.argtypes = [LL]
+            L.zk_csr_chunks.restype = LL
             L.zk_seg_scratch_bytes.argtypes = [I, I, LL]
             L.zk_seg_scratch_bytes.restype = LL
             L.zk_probe_lookback_bytes.argtypes = [I, LL]
