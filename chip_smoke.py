@@ -34,19 +34,30 @@ Phases, in order; any failure exits non-zero:
      streams of one segment and of all heads (2^22 G2, 2^24 G1 points);
      each kernel timed with CUDA events beside its plain version and its
      bound (the work its inputs need);
-  6. the tree path: a depth-28 account tree over 2^27 random leaves made
+  6. the pipeline path: the service entry points at the prove path's size
+     (universe 100, tier 50:16, depth 28), as an operator runs them: a
+     seeded CEX table and user files from the sample_data CLI (each user
+     holds 30 tokens; the ingest must count the invalid rows exactly), the
+     witness service, keygen.run to artifacts (the keys read back equal to
+     keygen's on the card), dbtool's queue push, Prover.run until the queue
+     is empty (native solve, prove, self-verify a batch) and a rerun that
+     writes nothing, dbtool's status and proof export, and the verifier CLI
+     in subprocesses: on the proof CSV and sampled user proofs (exit 0),
+     and on a changed proof byte, a missing row and a changed user total
+     (exit non-zero);
+  7. the tree path: a depth-28 account tree over 2^27 random leaves made
      on the card, built level by level with the sparse Poseidon kernel,
      its whole first level held against the plain-schedule kernel, 64
      nodes of every level against the host Poseidon of their children,
      and 16 inclusion proofs (and a changed leaf that must fail);
-  7. the witness-service path at the reference's production constants
+  8. the witness-service path at the reference's production constants
      (500 assets, 12 tiers, depth 28, tiers 500:200 and 50:1380) over
      SERVICE_ACCOUNTS seeded accounts: prepare, run_witness,
      run_userproof on sqlite, a second run that writes nothing, and 256
      sampled userproof rows verified against the root and the host leaf
      hash;
-  8. every Poseidon kernel held against its plain version, bit for bit,
-     on a slice of the inputs of its largest launch on paths 4, 6 and 7,
+  9. every Poseidon kernel held against its plain version, bit for bit,
+     on a slice of the inputs of its largest launch on paths 4, 6, 7 and 8,
      and timed on the whole of them: the tree's kernel, the one-thread
      sparse permutation at each width the paths ran (against the plain
      schedule; with its ptxas figures, and the warp-a-chain kernel on the
@@ -54,7 +65,7 @@ Phases, in order; any failure exits non-zero:
      chain kernel on the service path's batched launch (every chain
      against the per-block kernel) and on one chain, with the products on
      a chain's critical path;
-  9. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
+ 10. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
      probes in scripts/): instruction rates, the digit convolutions, the
      Montgomery product's stages, the sparse Poseidon(2) ablations over
      the tree path's first level, the seg-scan stages over streams of the
@@ -69,6 +80,7 @@ launches; its checks run after the reading).  The last two lines are the
 kernel JSON line and the status line.
 """
 
+import csv
 import json
 import os
 import random
@@ -141,6 +153,10 @@ PATH_KERNELS = {
     "tree": ("poseidon_sparse3", "poseidon_plain_t3", "ff_mul"),
     "service": ("poseidon_sparse3", "poseidon_sparse_t6",
                 "poseidon_sparse_t17", "poseidon_chain", "ff_mul"),
+    # witness service, keygen's setup and the artifacts' normalisation, the
+    # prover's solves and proves: the prove path's kernels
+    "pipeline": PR1_KERNELS + ("poseidon_sparse3", "poseidon_sparse_t6",
+                               "poseidon_sparse_t17", "poseidon_chain"),
 }
 # the probes path's kernels (PATH_KERNELS["probes"], one per probe variant)
 # are filled in by main from the probes package; the path's time budget
@@ -1377,6 +1393,277 @@ def phase_service(n_accounts=SERVICE_ACCOUNTS, seed=11, device="cuda"):
     return launches
 
 
+# --- the pipeline path: the service entry points ------------------------------
+
+# users of the pipeline path: each holds PIPELINE_TOKENS tokens (so every
+# batch lands in the 50-asset tier); two user files of PIPELINE_FILE_ROWS
+# rows, the first PIPELINE_INVALID of each invalid by design
+PIPELINE_TOKENS = 30
+PIPELINE_FILE_ROWS = 28
+PIPELINE_INVALID = 4
+# the verifier CLI in a subprocess, at the path's asset universe (the
+# constants' test-size override; the tiers come from ZKPOR_TEST_TIERS)
+VERIFIER_CLI = ("import sys; from zkpos_tpu_torch.utils import constants as "
+                "C; C.configure(asset_counts={universe}, tier_count=12, "
+                "tree_depth={depth}); from zkpos_tpu_torch.services.verifier"
+                " import main; sys.exit(main(sys.argv[1:]))")
+
+
+def same_points(a, b):
+    """Two (N, na, 8) point tensors hold the same points: the same
+    identities, and equal affine coordinates (ec.canonical) on the card."""
+    import torch
+    from zkpos_tpu_torch.ops import ec
+
+    def zmask(t):
+        z = t[:, 2] if t.shape[1] == 3 else t[:, 4:].reshape(-1, 16)
+        return (z != 0).any(dim=1)
+    return (a.shape == b.shape and torch.equal(zmask(a), zmask(b))
+            and all(torch.equal(x, y)
+                    for x, y in zip(ec.canonical(a), ec.canonical(b))))
+
+
+def run_verifier(args, cwd, universe, depth, tiers):
+    """The verifier CLI in a subprocess (it runs on the host and forks its
+    pool): Popen, to be waited on by finish_verifier."""
+    env = dict(os.environ, ZKPOR_TEST_TIERS=tiers, PYTHONPATH=HERE)
+    return subprocess.Popen(
+        [sys.executable, "-c", VERIFIER_CLI.format(universe=universe,
+                                                   depth=depth)] + args,
+        cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def finish_verifier(proc, timeout=600):
+    """(exit code, standard output, the last line of standard error)."""
+    out, err = proc.communicate(timeout=timeout)
+    return proc.returncode, out, (err.strip().splitlines() or [""])[-1]
+
+
+def phase_pipeline(n_constraints, universe=100, tier=50, batch=16, depth=28,
+                   range_bits=16, seed=21, device="cuda"):
+    """The services as an operator runs them, at the prove path's size:
+    sample data (a seeded CEX table, user files from the sample_data CLI),
+    the witness service, keygen.run to artifacts (the keys read back equal
+    to keygen's on the card), dbtool's queue push, Prover.run until the
+    queue is empty and a rerun that writes nothing, dbtool's status and
+    proof export, the verifier CLI in a subprocess on the proof CSV and on
+    sampled user proofs, and tampered rows it must reject.  Returns the
+    path's launches."""
+    import base64
+    import contextlib
+    import io
+    import torch
+    from zkpos_tpu_torch.groth16.serialize import vk_to_bytes
+    from zkpos_tpu_torch.ops import field as F
+    from zkpos_tpu_torch.services import keygen
+    from zkpos_tpu_torch.services.config import ServiceConfig
+    from zkpos_tpu_torch.services.dbtool import DbTool
+    from zkpos_tpu_torch.services.prover import Prover
+    from zkpos_tpu_torch.services.verifier import load_proof_csv
+    from zkpos_tpu_torch.services.witness import WitnessService
+    from zkpos_tpu_torch.utils import constants as C
+    from zkpos_tpu_torch.utils import csv_ingest, sample_data
+    C.configure(asset_counts=universe, tier_count=12, tree_depth=depth)
+    tiers = f"{tier}:{batch}"
+    os.environ["ZKPOR_TEST_TIERS"] = tiers
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    phases = {}
+    t_path = time.time()
+
+    def lap(name, t0):
+        sync()
+        phases[name] = round(time.time() - t0, 3)
+        log(json.dumps({"pipeline_phase": name, "seconds": phases[name]}))
+        return time.time()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        tokens = ["btc", "eth", "shib"] + [
+            f"tok{i}" for i in range(3, PIPELINE_TOKENS)]
+        t = time.time()
+        cex_csv = sample_data.write_cex_info(
+            os.path.join(data, csv_ingest.CEX_ASSET_INFO_FILE), tokens, seed)
+        for fid in range(2):
+            subprocess.run(
+                [sys.executable, "-m", "zkpos_tpu_torch.utils.sample_data",
+                 str(fid), str(PIPELINE_FILE_ROWS), str(PIPELINE_INVALID),
+                 "--cex", cex_csv, "--out-dir", data, "--tokens",
+                 ",".join(tokens), "--seed", str(seed + 1 + fid)],
+                cwd=HERE, check=True, capture_output=True)
+        accounts, cex, invalid = csv_ingest.parse_user_data_set(data)
+        valid = {k: len(v) for k, v in accounts.items()}
+        if invalid != 2 * PIPELINE_INVALID or valid != {
+                tier: 2 * (PIPELINE_FILE_ROWS - PIPELINE_INVALID)}:
+            fail(f"sample data: {valid} valid by tier, {invalid} invalid")
+        n_batches = valid[tier] // batch
+        t = lap("sample_data", t)
+        cfg = ServiceConfig(
+            db_path=os.path.join(tmp, "zkpos.db"), user_data_file=data,
+            zk_key_name=os.path.join(tmp, "keys", "zkpor"),
+            proof_table=os.path.join(tmp, "proofs.csv"),
+            cex_assets_info=os.path.join(tmp, "cex_assets.json"))
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        F.LAUNCHES.clear()
+        F.SIZES.clear()
+        t = time.time()
+        svc = WitnessService(cfg, device=device)
+        svc.prepare(accounts, cex)
+        t = lap("witness_prepare", t)
+        if svc.run_witness() != n_batches:
+            fail("witness service: wrong number of batch witnesses")
+        t = lap("run_witness", t)
+        if svc.run_userproof() != svc.capacity:
+            fail("witness service: wrong number of user proofs")
+        t = lap("run_userproof", t)
+        del svc
+        spans = {}
+        made = keygen.run(cfg.zk_key_name, device=device,
+                          range_bits=range_bits, spans=spans)
+        t = lap("keygen", t)
+        sp = spans[tier]
+        if sp["constraints"] != n_constraints:
+            fail(f"keygen compiled {sp['constraints']} constraints, the "
+                 f"prove path {n_constraints}")
+        log(json.dumps({"keygen": {k: (round(v, 3) if isinstance(v, float)
+                                       else v) for k, v in sp.items()}}))
+        pk, vk = made.pop(tier)
+        pk_f, vk_f, r1cs_f = keygen.key_file_names(cfg.zk_key_name, tier,
+                                                   batch)
+        back = keygen.load_artifact(pk_f, device)
+        for name in ("a_g1", "b1_g1", "k_g1", "z_g1", "b_g2", "ck_bases",
+                     "ck_sigma_bases"):
+            if not same_points(getattr(back, name), getattr(pk, name)):
+                fail(f"pk artifact: {name} differs from keygen's key")
+        for name in ("alpha_g1", "beta_g1", "delta_g1", "beta_g2",
+                     "delta_g2", "num_public", "domain_size", "commit_wires",
+                     "challenge_wire"):
+            if getattr(back, name) != getattr(pk, name):
+                fail(f"pk artifact: {name} differs from keygen's key")
+        if vk_to_bytes(keygen.load_artifact(vk_f)) != vk_to_bytes(vk):
+            fail("vk artifact differs from keygen's key")
+        r1cs = keygen.load_artifact(r1cs_f)
+        if (r1cs["num_constraints"] != n_constraints
+                or r1cs["solver_program"] is None):
+            fail("r1cs artifact: wrong size or no solver program")
+        del made, pk, vk, back, r1cs
+        torch.cuda.empty_cache()
+        t = lap("artifacts_checked", t)
+        tool = DbTool(cfg, device=device)
+        if tool.push_task_to_redis() != n_batches:
+            fail("dbtool pushed a wrong number of tasks")
+        prover = Prover(cfg, device=device)
+        prover.run(queue_timeout=1.0)
+        t = lap("prover_run", t)
+        proofs = tool.proof.get_all_proofs()
+        if [r.batch_number for r in proofs] != list(range(n_batches)):
+            fail(f"prover wrote proofs for {[r.batch_number for r in proofs]}")
+        prover.run(rerun=True)
+        if (tool.proof.get_all_proofs() != proofs
+                or len(prover.batch_seconds) != n_batches):
+            fail("the prover's rerun wrote rows")
+        t = lap("prover_rerun", t)
+        log(json.dumps({"prover": {
+            "load_s": {k: round(v, 3) for k, v in
+                       prover.load_seconds.items()},
+            "batches_s": {h: {k: round(v, 3) for k, v in s_.items()}
+                          for h, s_ in prover.batch_seconds.items()}}}))
+        del prover
+        status = tool.check_prover_status()
+        if status != {"published": 0, "received": 0,
+                      "finished": n_batches}:
+            fail(f"prover status {status}")
+        if tool.export_proof_csv(cfg.proof_table) != n_batches:
+            fail("dbtool exported a wrong number of proofs")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cex_json = tool.query_cex_assets()
+        with open(cfg.cex_assets_info, "w") as f:
+            json.dump(cex_json, f)
+        t = lap("dbtool", t)
+        # the card's part of the path ends here: the verifier runs on the
+        # host, in other processes
+        launches = dict(F.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        torch.cuda.empty_cache()
+        # the verifier CLI: the proofs alone first (timed), then sampled
+        # user proofs and the tampered cases together
+        conf = os.path.join(tmp, "config.json")
+        with open(conf, "w") as f:
+            json.dump({"MysqlDataSource": cfg.db_path,
+                       "ZkKeyName": cfg.zk_key_name,
+                       "ProofTable": cfg.proof_table,
+                       "CexAssetsInfo": cfg.cex_assets_info}, f)
+        vargs = (universe, depth, tiers)
+        rc, out, err = finish_verifier(run_verifier(
+            ["-config", conf], tmp, *vargs))
+        if rc != 0 or "All proofs verified!!!" not in out:
+            fail(f"verifier CLI on the proof CSV: exit {rc}, {err}")
+        t = lap("verifier_cli", t)
+        rows = load_proof_csv(cfg.proof_table)
+        cases = {}
+        bad = [dict(r) for r in rows]
+        proof = bytearray(base64.b64decode(bad[1]["proof_info"]))
+        proof[0] ^= 0x40       # Ar's flag: the other root, -Ar
+        bad[1]["proof_info"] = base64.b64encode(bytes(proof)).decode()
+        cases["proof_byte"] = bad
+        cases["index_gap"] = [dict(rows[0])] + [dict(r) for r in rows[2:]]
+        procs = {}
+        for name, case in cases.items():
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            with open(os.path.join(d, "proofs.csv"), "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=list(rows[0]))
+                w.writeheader()
+                w.writerows(case)
+            with open(os.path.join(d, "config.json"), "w") as f:
+                json.dump({"ZkKeyName": cfg.zk_key_name,
+                           "ProofTable": os.path.join(d, "proofs.csv"),
+                           "CexAssetsInfo": cfg.cex_assets_info}, f)
+            procs[name] = run_verifier(["-config", "config.json"], d, *vargs)
+        rng = random.Random(seed)
+        um = tool.userproof
+        users = sorted(rng.sample(range(valid[tier]), 3))
+        for idx in users + ["tampered"]:
+            config = json.loads(um.get_by_index(
+                users[0] if idx == "tampered" else idx).config)
+            if idx == "tampered":
+                config["TotalEquity"] += 1
+            d = os.path.join(tmp, f"user_{idx}")
+            os.makedirs(os.path.join(d, "config"))
+            with open(os.path.join(d, "config", "user_config.json"),
+                      "w") as f:
+                json.dump(config, f)
+            procs[f"user_{idx}"] = run_verifier(["-user"], d, *vargs)
+        verdicts = {}
+        for name, proc in procs.items():
+            rc, out, err = finish_verifier(proc)
+            verdicts[name] = {"exit": rc, "said": (out.strip().splitlines()
+                                                   or [""])[-1][:120],
+                              "error": err[:200]}
+            want_ok = name.startswith("user_") and name != "user_tampered"
+            if (rc == 0) != want_ok:
+                fail(f"verifier CLI, {name}: exit {rc}, {verdicts[name]}")
+        if "batch 1: groth16 verify failed" not in verdicts["proof_byte"][
+                "error"]:
+            fail(f"a changed proof byte: {verdicts['proof_byte']}")
+        if "batch 2" not in verdicts["index_gap"]["error"]:
+            fail(f"an index gap: {verdicts['index_gap']}")
+        t = lap("verifier_cli_checks", t)
+        log(json.dumps({"verifier_cli": verdicts}))
+    phases["path"] = round(time.time() - t_path, 3)
+    log(json.dumps({"pipeline_path": {
+        "universe": universe, "tier": tier, "batch": batch, "depth": depth,
+        "constraints": n_constraints, "batches": n_batches,
+        "invalid_rows": invalid, "artifact_bytes": sp["bytes"],
+        "phases_s": phases, "peak_device_bytes": peak,
+        "launches": launches}}))
+    return launches
+
+
 def phase_poseidon_kernels(tree, inputs):
     """Each Poseidon kernel against its plain version on the card, bit for
     bit, on a slice of the inputs of its largest launch (hashes are
@@ -1580,10 +1867,14 @@ def main():
                                           inputs.chain_launches]}))
     log(f"prove path done at {time.time() - t_all:.1f} s")
     rows, means = phase_kernels(cs, pk, scs, sizes, windows)
+    n_constraints = len(cs.constraints)
     del windows
     del cs, pk, scs
     torch.cuda.empty_cache()
     log(f"prove-path kernel checks done at {time.time() - t_all:.1f} s")
+    launches["pipeline"] = phase_pipeline(n_constraints)
+    need(launches["pipeline"], "pipeline")
+    log(f"pipeline path done at {time.time() - t_all:.1f} s")
     tree, launches["tree"] = phase_tree()
     need(launches["tree"], "tree")
     log(f"tree path done at {time.time() - t_all:.1f} s")

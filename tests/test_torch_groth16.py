@@ -1,5 +1,6 @@
 """The whole slice on the CPU: a proof from the port equals the JAX
-package's proof point for point.
+package's proof point for point and byte for byte (serialize), and keys
+cross between the packages through their artifacts.
 
 The lookup-plus-commitment circuit of tests/test_groth16.py is set up and
 proved by the JAX package on its own CPU path with a fixed rng.  (Its
@@ -8,18 +9,39 @@ scalar multiplications take minutes for this circuit.)  Groth16's proof is a det
 so the port, given the same keys (carried across with keys_from_arrays)
 and the same r and s, must produce the same points; and the JAX package's
 verifier must accept the port's proof.
+
+The setup and the two proofs run once (a module fixture); the tests on
+them hold, exactly: proof_to_bytes and vk_to_bytes against the JAX
+package's; a pk written by the port (its bases in projective
+representatives with Z != 1) read by zkpos_tpu.groth16.artifact as the JAX
+keys' points, and the JAX package's artifacts read by the port as
+keys_from_arrays of the same keys, limb for limb; keygen.run's three
+artifacts; and a compile_tier(3, 2) r1cs artifact with its solver program
+through both packages' loaders.
 """
+import dataclasses
+import gzip
+import os
+import pickle
+
 import numpy as np
+import pytest
 import torch
 
 from zkpos_tpu.crypto import bn254 as jbn
 from zkpos_tpu.circuit.cs import ConstraintSystem as JCS
 from zkpos_tpu.circuit.gadgets import LookupTable as JLookup
+from zkpos_tpu.groth16 import artifact as jaf
 from zkpos_tpu.groth16 import groth16 as jg16
+from zkpos_tpu.groth16 import serialize as jser
 
 from zkpos_tpu_torch.circuit.cs import ConstraintSystem as TCS
 from zkpos_tpu_torch.circuit.gadgets import LookupTable as TLookup
+from zkpos_tpu_torch.groth16 import artifact as taf
 from zkpos_tpu_torch.groth16 import groth16 as tg16
+from zkpos_tpu_torch.groth16 import serialize as tser
+from zkpos_tpu_torch.ops import field as F
+from zkpos_tpu_torch.services import keygen as tkeygen
 
 # the plain versions run many small ops: one thread per worker process
 # keeps them from oversubscribing the cores next to the other workers
@@ -84,20 +106,28 @@ def jax_points(coords, mask):
     return out
 
 
-def test_port_proof_equals_jax_proof():
+@pytest.fixture(scope="module")
+def proved():
+    """The JAX package's keys and proof, and the port's proof under those
+    keys with the same r and s."""
     compile_cs = JCS(solve=False)
     build_lookup(compile_cs, JLookup)
     jpk, jvk = jg16.setup(compile_cs, rng=fixed_rng(100, 6))
     jcs = JCS(solve=True)
     build_lookup(jcs, JLookup, WANT, IDXS)
     jproof = jg16.prove(jcs, jpk, rng=fixed_rng(200, 2))
-    assert jg16.verify(jproof, jvk, [WANT])
-
     tpk, tvk = tg16.keys_from_arrays(*key_arrays(jpk, jvk), device="cpu")
     tcs = TCS(solve=True)
     build_lookup(tcs, TLookup, WANT, IDXS)
     tproof = tg16.prove(tcs, tpk, rng=fixed_rng(200, 2))
+    return {"jpk": jpk, "jvk": jvk, "jproof": jproof, "tpk": tpk,
+            "tvk": tvk, "tproof": tproof}
 
+
+def test_port_proof_equals_jax_proof(proved):
+    jproof, jvk = proved["jproof"], proved["jvk"]
+    tproof, tvk = proved["tproof"], proved["tvk"]
+    assert jg16.verify(jproof, jvk, [WANT])
     got = tg16.proof_to_arrays(tproof)
     for name in ("ar", "bs", "krs", "d", "pok"):
         want = tg16.points_to_arrays([getattr(jproof, name)])
@@ -109,3 +139,163 @@ def test_port_proof_equals_jax_proof():
     assert jg16.verify(carried, jvk, [WANT])
     assert not jg16.verify(carried, jvk, [WANT + 1])
     assert tg16.verify(tproof, tvk, [WANT])
+
+
+# --- proof and key bytes, and the artifacts both packages read ---------------
+
+def test_proof_bytes_equal_jax(proved):
+    """serialize.proof_to_bytes of the port's proof equals the JAX
+    package's, byte for byte, and reads back as the same points."""
+    want = jser.proof_to_bytes(proved["jproof"])
+    got = tser.proof_to_bytes(proved["tproof"])
+    assert got == want
+    assert tser.proof_to_base64(proved["tproof"]) == \
+        jser.proof_to_base64(proved["jproof"])
+    back = tser.proof_from_base64(tser.proof_to_base64(proved["tproof"]))
+    assert back == proved["tproof"]
+    assert tg16.verify(back, proved["tvk"], [WANT])
+
+
+def test_vk_bytes_equal_jax(proved):
+    want = jser.vk_to_bytes(proved["jvk"])
+    assert tser.vk_to_bytes(proved["tvk"]) == want
+    back = tser.vk_from_bytes(want)
+    for name in ("alpha_g1", "beta_g2", "gamma_g2", "delta_g2", "k_gamma_g1",
+                 "num_public", "kc_g1", "sigma_g2", "beta_g1", "delta_g1",
+                 "public_and_commitment_committed"):
+        assert getattr(back, name) == getattr(proved["tvk"], name), name
+
+
+def _rescaled(pts, seed):
+    """The same points in another projective representative: every
+    coordinate times a random nonzero lambda of Fp (one per point)."""
+    n, na = pts.shape[0], pts.shape[1]
+    raw = torch.zeros((n, 8), dtype=torch.int32)
+    raw[:, 0] = torch.randint(1, 1 << 30, (n,), dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(seed))
+    lam = F.to_mont(raw, F.FP).repeat_interleave(na, 0)
+    return F.mul(pts.reshape(-1, 8).contiguous(), lam, F.FP).reshape(
+        pts.shape)
+
+
+def test_pk_written_by_port_loads_in_jax(proved, tmp_path):
+    """A pk whose bases are in other projective representatives than
+    affine (Z != 1) is normalised on save: the JAX package's loader reads
+    the JAX keys' points back; the vk file is the gnark bytes."""
+    tpk = proved["tpk"]
+    scaled = dataclasses.replace(tpk, dev_bases={}, **{
+        name: _rescaled(getattr(tpk, name), i)
+        for i, name in enumerate(("a_g1", "b1_g1", "k_g1", "z_g1", "b_g2",
+                                  "ck_bases", "ck_sigma_bases"))})
+    assert not torch.equal(scaled.a_g1, tpk.a_g1)
+    taf.save(str(tmp_path / "t.pk"), scaled)
+    taf.save(str(tmp_path / "t.vk"), proved["tvk"])
+    back = jaf.load(str(tmp_path / "t.pk"))
+    jpk = proved["jpk"]
+    for name in ("a_g1", "b1_g1", "k_g1", "z_g1", "b_g2", "ck_bases",
+                 "ck_sigma_bases"):
+        assert list(getattr(back, name)) == list(getattr(jpk, name)), name
+    for name in ("alpha_g1", "beta_g1", "delta_g1", "beta_g2", "delta_g2",
+                 "num_public", "domain_size", "commit_wires",
+                 "challenge_wire"):
+        assert getattr(back, name) == getattr(jpk, name), name
+    with open(tmp_path / "t.vk", "rb") as f:
+        assert f.read() == jser.vk_to_bytes(proved["jvk"])
+    assert jaf.load(str(tmp_path / "t.vk")).k_gamma_g1 == \
+        proved["jvk"].k_gamma_g1
+
+
+def test_pk_written_by_jax_loads_in_port(proved, tmp_path):
+    """The JAX package's artifacts load into the port as keys_from_arrays
+    of the same keys: every base tensor equal, limb for limb."""
+    jaf.save(str(tmp_path / "j.pk"), proved["jpk"])
+    jaf.save(str(tmp_path / "j.vk"), proved["jvk"])
+    pk = taf.load(str(tmp_path / "j.pk"), device="cpu")
+    want = proved["tpk"]
+    for name in ("a_g1", "b1_g1", "k_g1", "z_g1", "b_g2", "ck_bases",
+                 "ck_sigma_bases"):
+        assert torch.equal(getattr(pk, name), getattr(want, name)), name
+    for name in ("alpha_g1", "beta_g1", "delta_g1", "beta_g2", "delta_g2",
+                 "num_public", "domain_size", "commit_wires",
+                 "challenge_wire"):
+        assert getattr(pk, name) == getattr(want, name), name
+    vk = taf.load(str(tmp_path / "j.vk"))
+    assert tser.vk_to_bytes(vk) == tser.vk_to_bytes(proved["tvk"])
+    # not a container; and the JAX package's legacy gzip-pickle, which the
+    # port does not read
+    with pytest.raises(ValueError, match="not a ZKPOS artifact"):
+        taf.load_pk(str(tmp_path / "j.vk"), device="cpu")
+    with gzip.open(tmp_path / "old.pk", "wb") as f:
+        pickle.dump({"legacy": 1}, f)
+    with pytest.raises(ValueError, match="gzip-pickle"):
+        taf.load(str(tmp_path / "old.pk"))
+
+
+def test_keygen_run_writes_artifacts(proved, tmp_path, monkeypatch):
+    """keygen.run on the CPU, with the lookup circuit in place of the
+    BatchCreateUser tier (whose setup needs the card) and setup returning
+    the fixture's keys: the three artifacts, the recorded solver program,
+    the keys read back, and a second run that skips."""
+    def compile_lookup(assets, batch, range_bits=8):
+        cs = TCS(solve=False, range_bits=range_bits)
+        build_lookup(cs, TLookup)
+        cs.finalize()
+        return cs
+    monkeypatch.setattr(tkeygen, "compile_tier", compile_lookup)
+    monkeypatch.setattr(tkeygen.g16, "setup",
+                        lambda cs, device=None: (proved["tpk"], proved["tvk"]))
+    prefix = str(tmp_path / "keys" / "zkpor")
+    spans = {}
+    made = tkeygen.run(prefix, tiers={3: 2}, device="cpu", spans=spans)
+    assert made == {3: (proved["tpk"], proved["tvk"])}
+    pk_f, vk_f, r1cs_f = tkeygen.key_file_names(prefix, 3, 2)
+    assert set(spans[3]["bytes"]) == {os.path.basename(f)
+                                      for f in (pk_f, vk_f, r1cs_f)}
+    r1cs = tkeygen.load_artifact(r1cs_f)
+    assert r1cs["solver_program"] is not None
+    assert r1cs["commitment"]["wires"] == proved["tpk"].commit_wires
+    pk = tkeygen.load_artifact(pk_f, device="cpu")
+    for name in ("a_g1", "z_g1", "b_g2", "ck_bases"):
+        assert torch.equal(getattr(pk, name), getattr(proved["tpk"], name))
+    assert tser.vk_to_bytes(tkeygen.load_artifact(vk_f)) == \
+        jser.vk_to_bytes(proved["jvk"])
+    assert tkeygen.run(prefix, tiers={3: 2}, device="cpu") == {}
+
+
+def test_r1cs_artifact_round_trip_both_packages(tmp_path):
+    """compile_tier(3, 2) at universe 4, tier count 2, depth 8, with its
+    solver program: written by the port, read by the JAX package, written
+    again by it and read back by the port, every array equal."""
+    from zkpos_tpu_torch.circuit import solver_native as tsn
+    from zkpos_tpu_torch.utils import constants as TC
+    saved = (TC.ASSET_COUNTS, TC.TIER_COUNT, TC.ACCOUNT_TREE_DEPTH)
+    TC.configure(asset_counts=4, tier_count=2, tree_depth=8)
+    try:
+        cs = tkeygen.compile_tier(3, 2)
+        meta = {"num_vars": cs.num_vars, "num_public": cs.num_public,
+                "num_constraints": len(cs.constraints),
+                "range_bits": cs.range_bits, "commitment": cs.commitment,
+                "constraints": cs.constraints,
+                "solver_program": tsn.program_to_dict(
+                    tsn.record_program(cs))}
+    finally:
+        TC.configure(*saved)
+    taf.save(str(tmp_path / "t.r1cs"), meta)
+    jmeta = jaf.load(str(tmp_path / "t.r1cs"))
+    jaf.save(str(tmp_path / "j.r1cs"), jmeta)
+    back = taf.load(str(tmp_path / "j.r1cs"))
+    for got in (jmeta, back):
+        for key in ("num_vars", "num_public", "num_constraints",
+                    "range_bits", "commitment"):
+            assert got[key] == meta[key], key
+        fc, want = got["constraints"], meta["constraints"]
+        for attr in ("vars", "coeffs", "lens"):
+            assert bytes(getattr(fc, attr)) == bytes(getattr(want, attr))
+        assert list(fc.pool) == list(want.pool)
+        sp, wp = got["solver_program"], meta["solver_program"]
+        for key in ("n_cons", "n_vars", "boundary", "hint_boundary",
+                    "commit_wires", "challenge_wire"):
+            assert sp[key] == wp[key], key
+        assert sorted(sp["arrays"]) == sorted(wp["arrays"])
+        for k, arr in wp["arrays"].items():
+            assert np.array_equal(sp["arrays"][k], arr), k

@@ -10,8 +10,9 @@ Schema, status machine and claim semantics match the reference:
   * userproof<suffix>(account_index UNIQUE, ...) (userproof_model.go:14-28);
   * proof<suffix>(batch_number UNIQUE, ...) (proof_model.go:29-39).
 
-Backend: sqlite.  The JAX package's MySQL backend is not part of the
-port yet; a `mysql://` DSN is refused.
+Backend: sqlite (always available).  A MySQL backend drops in behind the
+same Database facade when a client library is present (the DSN decides);
+the services never see the difference.
 """
 
 from __future__ import annotations
@@ -63,10 +64,12 @@ class ProofRow:
 
 
 def open_database(dsn: str):
-    """A sqlite path -> Database; a `mysql://` DSN is refused (the MySQL
-    backend is not ported)."""
+    """Backend selection by DSN: `mysql://…` -> MySQL (db/mysql_backend.py,
+    reference-parity dialect + FOR UPDATE claims); anything else is a
+    sqlite path (the tested default)."""
     if dsn.startswith("mysql://"):
-        raise ValueError("the MySQL backend is not part of the port")
+        from .mysql_backend import connect_dsn
+        return connect_dsn(dsn)
     return Database(dsn)
 
 

@@ -375,24 +375,38 @@ def arrays_to_points(coords: np.ndarray, mask: np.ndarray) -> list:
     return out
 
 
-def _arrays_to_tensor(coords: np.ndarray, mask: np.ndarray, curve: str,
-                      device) -> torch.Tensor:
-    """(coords, mask) -> projective (N, na, 8) device points, vectorised:
-    Montgomery conversion on the device, Z = 1, identity where masked."""
+def arrays_to_tensor(coords: np.ndarray, mask: np.ndarray, curve: str,
+                     device) -> torch.Tensor:
+    """(coords, mask) -> projective (N, na, 8) points on `device`: one
+    host-to-device copy, the Montgomery conversion on the device, Z = 1,
+    the identity (0 : 1 : 0) where masked."""
     n, k = coords.shape[0], coords.shape[1]
     na = 3 if curve == "g1" else 6
-    xy = F.to_mont(F.u64_to_tensor(coords.reshape(n * k, 4), device),
-                   F.FP).reshape(n, k, 8)
-    out = ec.identity(na, n, device)
+    raw = torch.from_numpy(np.ascontiguousarray(coords, dtype=np.uint64)
+                           .view(np.int32).reshape(n * k, 8))
+    xy = F.to_mont(raw.to(device), F.FP).reshape(n, k, 8)
     m = torch.from_numpy(np.asarray(mask, dtype=bool)).to(device)
     one = F.const(1, F.FP, device).reshape(8)
-    sel = out[m]
-    sel[:, :k] = xy[m]
-    sel[:, k] = one
-    if na == 6:
-        sel[:, 5] = 0
-    out[m] = sel
+    out = torch.zeros((n, na, 8), dtype=torch.int32, device=device)
+    out[:, :k] = torch.where(m[:, None, None], xy, 0)
+    out[:, k] = torch.where(m[:, None], one, 0)           # Z (z.c0)
+    y = k // 2                                            # Y (y.c0)
+    out[:, y] = torch.where(m[:, None], out[:, y], one)
     return out
+
+
+def tensor_to_arrays(pts: torch.Tensor):
+    """The reverse: projective (N, na, 8) points -> (coords, mask) on the
+    host, normalised where the points live (ec.canonical: one batched
+    inverse, then the products and the conversion out of Montgomery form
+    on the device), with one device-to-host copy."""
+    n, na = pts.shape[0], pts.shape[1]
+    z = pts[:, 2] if na == 3 else pts[:, 4:].reshape(n, 16)
+    mask = (z != 0).any(dim=1)
+    xy = F.from_mont(torch.stack(ec.canonical(pts), 1).reshape(-1, 8), F.FP)
+    k = 2 if na == 3 else 4
+    coords = xy.cpu().numpy().view(np.uint64).reshape(n, k, 4)
+    return coords, mask.cpu().numpy()
 
 
 def keys_from_arrays(pk_arrays: dict, vk_arrays: dict, device=None):
@@ -408,7 +422,7 @@ def keys_from_arrays(pk_arrays: dict, vk_arrays: dict, device=None):
             pk_kw[name] = arrays_to_points(*val)[0]
         elif name in _PK_BASES:
             pk_kw[name] = (None if val is None else
-                           _arrays_to_tensor(*val, _PK_BASES[name], dev))
+                           arrays_to_tensor(*val, _PK_BASES[name], dev))
         else:
             pk_kw[name] = val
     vk_kw = {}

@@ -23,3 +23,9 @@ def ints_to_limbs(values, mod: int) -> np.ndarray:
     buf = b"".join(int(v % mod).to_bytes(32, "little") for v in values)
     return np.frombuffer(buf, dtype=np.uint64).reshape(-1, 4).copy()
 
+
+
+def limbs_to_ints(a: np.ndarray) -> list:
+    """(N, 4) uint64 little-endian limb rows -> list[int]."""
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    return [int.from_bytes(row.tobytes(), "little") for row in a]
