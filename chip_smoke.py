@@ -50,14 +50,25 @@ Phases, in order; any failure exits non-zero:
      its whole first level held against the plain-schedule kernel, 64
      nodes of every level against the host Poseidon of their children,
      and 16 inclusion proofs (and a changed leaf that must fail);
-  8. the witness-service path at the reference's production constants
+  8. the mesh path (zkpos_tpu_torch/parallel/mesh.py): graft.entry()'s
+     node hash once against its plain version, then ranks started by
+     torch.multiprocessing.spawn, at one rank over nccl and at two and
+     four ranks that share the card over gloo, each rank on its contiguous
+     range (graft.sharded_step over mesh_shards): the sharded root of
+     the tree path's 2^27 leaves against the tree's level-27 node, the
+     stream MSMs over 1,924,679 bases (G1 at c = 16, G2 at c = 12), the
+     double-and-add MSM and the point fold over 2^20 G1 points, each
+     against the single-process msm_device.msm_point on the same inputs
+     by affine value; the ranks report their launch counts and each
+     step's seconds;
+  9. the witness-service path at the reference's production constants
      (500 assets, 12 tiers, depth 28, tiers 500:200 and 50:1380) over
      SERVICE_ACCOUNTS seeded accounts: prepare, run_witness,
      run_userproof on sqlite, a second run that writes nothing, and 256
      sampled userproof rows verified against the root and the host leaf
      hash;
-  9. every Poseidon kernel held against its plain version, bit for bit,
-     on a slice of the inputs of its largest launch on paths 4, 6, 7 and 8,
+ 10. every Poseidon kernel held against its plain version, bit for bit,
+     on a slice of the inputs of its largest launch on paths 4, 6, 7 and 9,
      and timed on the whole of them: the tree's kernel, the one-thread
      sparse permutation at each width the paths ran (against the plain
      schedule; with its ptxas figures, and the warp-a-chain kernel on the
@@ -65,7 +76,7 @@ Phases, in order; any failure exits non-zero:
      chain kernel on the service path's batched launch (every chain
      against the per-block kernel) and on one chain, with the products on
      a chain's critical path;
- 10. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
+ 11. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
      probes in scripts/): instruction rates, the digit convolutions, the
      Montgomery product's stages, the sparse Poseidon(2) ablations over
      the tree path's first level, the seg-scan stages over streams of the
@@ -157,6 +168,9 @@ PATH_KERNELS = {
     # prover's solves and proves: the prove path's kernels
     "pipeline": PR1_KERNELS + ("poseidon_sparse3", "poseidon_sparse_t6",
                                "poseidon_sparse_t17", "poseidon_chain"),
+    # the sharded root, point fold, double-and-add and stream MSMs
+    "mesh": ("poseidon_sparse3", "seg_sums_g1", "seg_sums_g2", "g1_add",
+             "g1_horner", "g2_horner"),
 }
 # the probes path's kernels (PATH_KERNELS["probes"], one per probe variant)
 # are filled in by main from the probes package; the path's time budget
@@ -1262,6 +1276,123 @@ def phase_tree(log_leaves=27, depth=28, seed=7, device="cuda"):
     return tree, launches
 
 
+# --- the mesh path -------------------------------------------------------------
+
+# world sizes and their backends: one rank over nccl, and two and four ranks
+# that share the card over gloo
+MESH_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+# the stream MSMs' bases (the prove's G2 base count) and the double-and-add's
+# points
+MESH_MSM_N = 1924679
+MESH_DBL_N = 1 << 20
+# the stream MSMs' window widths: the prove's
+MESH_C = (("g1", 16), ("g2", 12))
+
+
+def mesh_inputs(device, n_msm, n_dbl):
+    """The mesh path's seeded scalars on the device, (N, 8) standard-form
+    rows below r: those that make the stream MSMs' bases (s * G1 and
+    s * G2), each curve's MSM scalars, and the double-and-add's base and
+    scalars."""
+    return {"base": random_leaves(n_msm, 21, device),
+            "g1": random_leaves(n_msm, 22, device),
+            "g2": random_leaves(n_msm, 23, device),
+            "dbl_base": random_leaves(n_dbl, 24, device),
+            "dbl": random_leaves(n_dbl, 25, device)}
+
+
+def mesh_shards(mesh, log_leaves, n_msm, n_dbl, widths):
+    """One rank's shards of the mesh path, for graft.sharded_step: its
+    contiguous range of the tree path's leaves and of every MSM input."""
+    from zkpos_tpu_torch.ops import field as F, msm, msm_device as md
+    dev, D, r = mesh.device, mesh.world, mesh.rank
+
+    def mine(x):
+        n = x.shape[0]
+        return x[r * n // D:(r + 1) * n // D].contiguous()
+
+    leaves = random_leaves(1 << log_leaves, 7, dev)
+    shard = F.to_mont(mine(leaves))
+    del leaves
+    inp = {k: mine(v) for k, v in mesh_inputs(dev, n_msm, n_dbl).items()}
+    return {"leaves": shard,
+            "pts": msm.fixed_base_batch("g1", inp["dbl_base"]),
+            "scalars": inp["dbl"],
+            "stream": {cv: {"base_shard": md.device_base(
+                                cv, msm.fixed_base_batch(cv, inp["base"])),
+                            "scalars_shard": inp[cv], "c": c}
+                       for cv, c in widths}}
+
+
+def phase_mesh(tree, card, log_leaves=27, device="cuda"):
+    """The mesh path: graft.entry()'s function once against its plain
+    version, then at each world size of MESH_WORLDS the ranks' results
+    against the single-process ones on the same inputs: the sharded root
+    against the tree path's level-27 node, the stream MSMs (G1 at c = 16,
+    G2 at c = 12), the double-and-add MSM and the point fold against
+    msm_device.msm_point (the fold's with every scalar 1), by affine value.
+    Returns the launches of the entry and of every rank."""
+    import torch
+    from zkpos_tpu_torch import graft
+    from zkpos_tpu_torch.ops import ec, field as F, msm, msm_device as md
+    from zkpos_tpu_torch.ops.poseidon_sparse import plain_hash2_mont_sparse
+    from zkpos_tpu_torch.parallel import mesh as pm
+    t_all = time.time()
+    want_root = F.tensor_to_ints(F.from_mont(tree.levels[log_leaves][:1]))[0]
+    inp = mesh_inputs(device, MESH_MSM_N, MESH_DBL_N)
+    want = {}
+    for cv, c in MESH_C:
+        base = md.device_base(cv, msm.fixed_base_batch(cv, inp["base"]))
+        want[f"stream_msm_{cv}"] = ec.to_affine(md.msm_point(
+            cv, base, plan=md.ScalarPlan(inp[cv], c=c)))[0]
+        del base
+    dbl = md.device_base("g1", msm.fixed_base_batch("g1", inp["dbl_base"]))
+    ones = torch.zeros_like(inp["dbl"])
+    ones[:, 0] = 1
+    want["dbl_msm"] = ec.to_affine(md.msm_point("g1", dbl, inp["dbl"]))[0]
+    want["point_fold"] = ec.to_affine(md.msm_point("g1", dbl, ones))[0]
+    del dbl, ones, inp
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    ref_s = time.time() - t_all
+    F.LAUNCHES.clear()
+    fn, args = graft.entry(device)
+    got = fn(*args)
+    launches = Counter(F.LAUNCHES)
+    if not torch.equal(got, plain_hash2_mont_sparse(*args)):
+        fail("graft.entry(): the node hash disagrees with its plain version")
+    # each rank on cuda:{rank % cards}, unless on the CPU
+    rank_device = None if torch.device(device).type == "cuda" else device
+    for world, backend in MESH_WORLDS:
+        t0 = time.time()
+        ranks = pm.run_ranks(graft.sharded_step, world, backend,
+                             rank_device, args=(mesh_shards, log_leaves,
+                                                MESH_MSM_N, MESH_DBL_N,
+                                                MESH_C))
+        wall = time.time() - t0
+        for r, out in enumerate(ranks):
+            res = out["results"]
+            if res["root"] != want_root:
+                fail(f"mesh world {world} rank {r}: the sharded root is not "
+                     f"the tree's level-{log_leaves} node")
+            bad = [k for k, v in want.items() if res[k] != v]
+            if bad:
+                fail(f"mesh world {world} rank {r}: {', '.join(bad)} differ "
+                     "from the single-process results")
+            launches.update(out["launches"])
+        log(json.dumps({"mesh_path": {
+            "world": world, "backend": backend, "card": card,
+            "ranks_s": round(wall, 3),
+            "shards": [o["shard"] for o in ranks],
+            "prep_s": [o["prep_s"] for o in ranks],
+            "steps_s": [o["seconds"] for o in ranks],
+            "peak_device_bytes": [o["peak_device_bytes"] for o in ranks],
+            "launches": [o["launches"] for o in ranks]}}))
+    log(json.dumps({"mesh_path_s": round(time.time() - t_all, 3),
+                    "single_process_reference_s": round(ref_s, 3)}))
+    return dict(launches)
+
+
 def make_user_base(C, cex, n_users, seed, AccountAsset, AccountInfo,
                    collateral):
     """n_users valid accounts by asset tier, from a seed, in the manner of
@@ -1878,6 +2009,9 @@ def main():
     tree, launches["tree"] = phase_tree()
     need(launches["tree"], "tree")
     log(f"tree path done at {time.time() - t_all:.1f} s")
+    launches["mesh"] = phase_mesh(tree, smi)
+    need(launches["mesh"], "mesh")
+    log(f"mesh path done at {time.time() - t_all:.1f} s")
     k0 = len(inputs.chain_launches)
     launches["service"] = phase_service()
     need(launches["service"], "service")

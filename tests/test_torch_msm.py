@@ -122,3 +122,34 @@ def test_plan_pads_front_with_identity_index():
     assert plan.Np % tmd.PAD_QUANTUM == 0 and plan.Np >= 3
     assert (plan.idx == 0).sum(dim=1).tolist() == [plan.Np - 3] * plan.W
     assert bool((plan.dig[:, 1:] >= plan.dig[:, :-1]).all())
+
+
+@pytest.mark.parametrize("curve,kind", [
+    ("g1", "small"), ("g2", "small"), ("g1", "zero"), ("g2", "zero")])
+def test_msm_point_is_msm(curve, kind):
+    """msm_point's projective sum, read as an affine point, is msm's and
+    the oracle's at c = 8.  The small scalars (below 2^20) go through a
+    plan that keeps the 3 low windows they fill, which raises on a scalar
+    above them (full-width plans: test_msm_matches_jax_engine); the zero
+    ones through a full plan."""
+    rng = np.random.default_rng(zlib.crc32(f"point-{curve}-{kind}".encode()))
+    pts = _points(curve, 9, rng)
+    base = tmd.device_base(curve, arrays_to_points(*points_to_arrays(pts)),
+                           device="cpu")
+    if kind == "small":
+        sc = [int(v) for v in rng.integers(0, 1 << 20, 9)]
+        plan = tmd.ScalarPlan(sc, c=8, device="cpu", windows=3)
+        assert plan.W == 3
+        with pytest.raises(ValueError, match="not below 2\\^24"):
+            tmd.ScalarPlan(sc[:-1] + [1 << 24], c=8, device="cpu",
+                           windows=3)
+    else:
+        sc = [0] * 9
+        plan = tmd.ScalarPlan(sc, c=8, device="cpu")
+        assert plan.W == 32 and plan.K == 0
+    p = tmd.msm_point(curve, base, plan=plan)
+    assert p.shape == (1, 3 if curve == "g1" else 6, 8)
+    got = tmd.ec.to_affine(p)[0]
+    want = _oracle(curve, pts, sc)
+    assert (got is None) == (kind == "zero")
+    assert _same(got, want) and _same(tmd.msm(curve, base, plan=plan), want)

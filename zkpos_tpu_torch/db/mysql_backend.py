@@ -81,6 +81,12 @@ class MySQLDatabase:
     def immediate(self):
         return _MySQLTxn(self._conn())
 
+    def close(self):
+        """Closes the connection; a later call opens another."""
+        if self._con is not None:
+            self._con.close()
+            self._con = None
+
 
 def _begin(con):
     """Portable transaction start: pymysql has begin(), mysql.connector has

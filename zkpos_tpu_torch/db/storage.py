@@ -104,6 +104,13 @@ class Database:
         """Context for an IMMEDIATE (write-locked) transaction."""
         return _Immediate(self._conn())
 
+    def close(self):
+        """Closes this thread's connection; a later call opens another."""
+        con = getattr(self._local, "con", None)
+        if con is not None:
+            con.close()
+            self._local.con = None
+
 
 class _Immediate:
     def __init__(self, con):

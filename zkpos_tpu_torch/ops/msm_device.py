@@ -18,6 +18,10 @@ MSMs and the two commitment MSMs:
   4. a Horner over the W window sums with c doublings through the
      complete add, in one launch (ops/ec.horner).
 
+`msm_point` returns the sum as a projective point on the device (what
+the sharded MSM gathers, parallel/mesh.py); `msm` reads it back as an
+affine host point.
+
 The TPU engine cut the stream into 2^21-entry chunks with a per-window
 carry to fit a v5e's 16 GB.  The H100's 80 GB hold a whole MSM's stream
 (the largest, G2 at c = 12 over 1.92 M scalars, is 42 M points, 8 GB), so
@@ -83,7 +87,11 @@ class ScalarPlan:
 
     __slots__ = ("n", "c", "W", "K", "Np", "dig", "idx", "device")
 
-    def __init__(self, scalars, c: Optional[int] = None, device=None):
+    def __init__(self, scalars, c: Optional[int] = None, device=None,
+                 windows: Optional[int] = None):
+        """`windows` keeps only the low window rows, for scalars below
+        2^(c * windows) (a small multi-rank check, as the JAX dryrun feeds
+        two rows); a non-zero digit above them raises."""
         dev = (scalars.device if isinstance(scalars, torch.Tensor)
                and device is None else resolve(device))
         self.device = dev
@@ -91,6 +99,11 @@ class ScalarPlan:
         self.n = sc.shape[0]
         self.c = c if c is not None else pick_c(max(self.n, 2))
         win = windows_of(sc, self.c)                       # (W, n)
+        if windows is not None:
+            if bool((win[windows:] != 0).any()):
+                raise ValueError(
+                    f"a scalar is not below 2^{self.c * windows}")
+            win = win[:windows]
         self.W = win.shape[0]
         self.K = int((win != 0).sum(dim=1).max()) if self.n else 0
         self.Np = -(-max(self.n, 1) // PAD_QUANTUM) * PAD_QUANTUM
@@ -161,19 +174,24 @@ def _fold(na: int, W: int, c: int, dense: torch.Tensor) -> torch.Tensor:
     return ec.seg_sums(suf.reshape(W * nb, na, 8).contiguous(), heads)
 
 
-
-
-def msm(curve: str, base: torch.Tensor, scalars=None,
-        plan: Optional[ScalarPlan] = None):
-    """sum_i s_i * P_i over a base from `device_base`.  Either `scalars`
-    or a prebuilt `plan` must be given.  Returns an affine host point, or
-    None when the sum is the identity (every scalar zero included)."""
+def msm_point(curve: str, base: torch.Tensor, scalars=None,
+              plan: Optional[ScalarPlan] = None) -> torch.Tensor:
+    """sum_i s_i * P_i over a base from `device_base`, as a (1, na, 8)
+    projective point on the base's device (the identity when every scalar
+    is zero).  Either `scalars` or a prebuilt `plan` must be given."""
     na = 3 if curve == "g1" else 6
     if plan is None:
         plan = ScalarPlan(scalars, device=base.device)
     if plan.K == 0:
-        return None
+        return ec.identity(na, 1, base.device)
     dense = _bucket_sums(na, plan, base)
     rw = _fold(na, plan.W, plan.c, dense)
     del dense
-    return ec.to_affine(ec.horner(rw, plan.c))[0]
+    return ec.horner(rw, plan.c)
+
+
+def msm(curve: str, base: torch.Tensor, scalars=None,
+        plan: Optional[ScalarPlan] = None):
+    """msm_point as an affine host point, or None when the sum is the
+    identity (every scalar zero included)."""
+    return ec.to_affine(msm_point(curve, base, scalars, plan))[0]

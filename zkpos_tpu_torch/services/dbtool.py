@@ -41,6 +41,13 @@ class DbTool:
         self.proof = ProofModel(self.db, cfg.db_suffix)
         self.queue = queue_from_config(cfg, self.db)
 
+    def close(self):
+        """Closes the database connection and the Redis socket, if any."""
+        client = getattr(self.queue, "client", None)
+        if client is not None:
+            client.close()
+        self.db.close()
+
     def delete_all(self):
         self.witness.drop_table()
         self.userproof.drop_table()
