@@ -79,7 +79,9 @@ Phases, in order; any failure exits non-zero:
  11. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
      probes in scripts/): instruction rates, the digit convolutions, the
      Montgomery product's stages, the sparse Poseidon(2) ablations over
-     the tree path's first level, the seg-scan stages over streams of the
+     the tree path's first level in the tree kernel's layout (their base
+     beside that kernel), the seg-scan stages (the single pass's byte
+     floor and structure, the three-pass yardstick) over streams of the
      prove path's sizes and mean segment lengths (measured in phase 5),
      and the weights-first product on the FP32 pipes and the TF32 tensor
      cores beside torch.matmul; one JSON line per probe, every variant
@@ -2050,6 +2052,14 @@ def main():
                       "three_pass_ms": f["ms"], "three_pass_n": f["n"],
                       "three_pass_over_seg_sums": round(f["ms"] / k["ms"], 3)}
     log(json.dumps({"seg_sums_vs_three_pass": cmp}))
+    # the ablations' base beside the tree's kernel that it takes apart, at
+    # the same n (the tree path's first level)
+    k = next(r for r in rows if r["name"] == "poseidon_sparse3")
+    f = next(r for r in rows if r["name"] == "split_full")
+    log(json.dumps({"split_full_vs_poseidon_sparse3": {
+        "poseidon_sparse3_ms": k["ms"], "n": k["n"],
+        "split_full_ms": f["ms"], "split_n": f["n"],
+        "split_full_over_poseidon_sparse3": round(f["ms"] / k["ms"], 4)}}))
     log(f"probes path done at {time.time() - t_all:.1f} s")
     for r in rows:
         by_path = {p_: n for p_, c in launches.items()

@@ -211,6 +211,15 @@ def test_full_split_matches_poseidon_ref():
                                               for x, y in zip(xs, ys)]
 
 
+def test_fixup_elements():
+    """The elements before each 64-element lane's first head: none in the
+    stream's first lane (position 0 counts as a head), 6 and 2 in lanes
+    with one, all 64 in a lane without, and the 8 of a short last lane."""
+    h = torch.zeros(264, dtype=torch.uint8)
+    h[[5, 70, 130]] = 1
+    assert pscan.fixup_elements(h) == 0 + 6 + 2 + 64 + 8
+
+
 def test_full_scan_stage_matches_jax_hs():
     from zkpos_tpu.ops import ec_f32 as ecf
     from zkpos_tpu_torch.groth16.groth16 import (arrays_to_points,

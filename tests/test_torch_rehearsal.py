@@ -16,7 +16,8 @@ for the lanes) against crypto/poseidon_ref, with the constant tables the
 port's wrappers upload;
 and the probes' device functions (csrc/probes.cuh: instruction-rate
 bodies, the digit convolutions, the product's stages, the Poseidon
-ablations and the scan's passes under both combines) against their plain
+ablations, the three-pass scan's passes; and the scan's structure, the
+single pass on the wrapping add, and its copy's walk) against their plain
 versions in zkpos_tpu_torch/probes; and the single-pass scan of
 csrc/seg_scan.cuh (its lane pass, lane scan, carries and count look-back,
 run tile by tile at a few lanes a tile) against ops/ec.plain_seg_scan /
@@ -77,8 +78,9 @@ def harness(tmp_path_factory):
     L.rh_probe_product.argtypes = [I, V, V, V, LG]
     L.rh_probe_latency.argtypes = [V, V, V, LG, I]
     L.rh_probe_split.argtypes = [I, V, V, V, V, LG]
-    L.rh_probe_scan.argtypes = [I, I, I, V, V, V, LG, I]
-    L.rh_seg.argtypes = [I, I, I, I, I, I, V, V, V, LG]
+    L.rh_probe_scan.argtypes = [I, I, V, V, V, LG, I]
+    L.rh_probe_scan_copy.argtypes = [I, I, I, I, V, V, V, V, LG]
+    L.rh_seg.argtypes = [I, I, I, I, I, I, I, V, V, V, LG]
     L.rh_fold_counts.argtypes = [V, I, V]
     L.rh_fold_points.argtypes = [V, V, V, I, V]
     L.rh_cc.argtypes = [I, V, V, V, V, V, V, LG]
@@ -511,18 +513,43 @@ def test_probe_split_variants(harness, mode):
         assert torch.equal(out, tsparse.plain_hash2_mont_sparse(a, b))
 
 
-@pytest.mark.parametrize("curve,stage", [("g1", "structure"),
-                                         ("g1", "local"), ("g1", "full"),
-                                         ("g2", "structure"), ("g2", "full")])
+@pytest.mark.parametrize("curve,stage", [
+    ("g1", "copy"), ("g1", "structure"), ("g1", "local"), ("g1", "full"),
+    ("g2", "copy"), ("g2", "structure"), ("g2", "full")])
 def test_probe_scan_passes(harness, curve, stage):
-    n = 300 if curve == "g1" else 140      # two levels of K = 16 blocks
+    """local and full: the three passes (two levels of K = 16 blocks);
+    copy and structure: the single pass's walk at SEG_LANES x SEG_K
+    elements a tile, in chunks of one and of two tiles, structure being
+    seg_scan.cuh with every add the wrapping add.  No head in 17..79: a
+    segment across blocks, tiles and chunks."""
+    n = 300 if curve == "g1" else 140
     pts, heads = pscan.stream(curve, n, 6.0, 41, "cpu")
-    heads[17:80] = 0                       # a segment over four blocks
-    out = torch.empty_like(pts)
-    harness.rh_probe_scan(pts.shape[1], int(stage == "structure"),
-                          int(stage != "local"), pts.data_ptr(),
-                          heads.data_ptr(), out.data_ptr(), n, pscan.K)
-    assert torch.equal(out, pscan.plain_stage(stage, pts, heads)[0])
+    heads[17:80] = 0
+    if stage in ("local", "full"):
+        out = torch.empty_like(pts)
+        harness.rh_probe_scan(pts.shape[1], int(stage != "local"),
+                              pts.data_ptr(), heads.data_ptr(),
+                              out.data_ptr(), n, pscan.K)
+        assert torch.equal(out, pscan.plain_stage(stage, pts, heads)[0])
+        return
+    for tpc in (1, 2):
+        out = torch.zeros_like(pts)
+        if stage == "structure":
+            assert harness.rh_seg(pts.shape[1], 0, 1, SEG_LANES, SEG_K, tpc,
+                                  2, pts.data_ptr(), heads.data_ptr(),
+                                  out.data_ptr(), n) == 0
+            assert torch.equal(out, pscan.plain_stage(stage, pts, heads)[0])
+            continue
+        chunk = SEG_TILE * tpc
+        scratch = torch.zeros(16 + 8 * -(-n // chunk), dtype=torch.uint8)
+        harness.rh_probe_scan_copy(pts.shape[1], SEG_LANES, SEG_K, tpc,
+                                   pts.data_ptr(), heads.data_ptr(),
+                                   out.data_ptr(), scratch.data_ptr(), n)
+        want = heads.clone()
+        want[0] = 1
+        counts = [int(want[i:i + chunk].sum()) for i in range(0, n, chunk)]
+        assert torch.equal(out, pts)
+        assert pscan.chunk_counts(scratch, len(counts)).tolist() == counts
 
 
 # --- the single-pass scan (csrc/seg_scan.cuh) -------------------------------
@@ -563,8 +590,8 @@ def test_seg_scan_tiles(harness, curve, kind):
         want = plain(pts, heads)
         for tpc in (1, 2):                 # tiles a chunk
             out = torch.zeros_like(want)
-            assert harness.rh_seg(pts.shape[1], sums, SEG_LANES, SEG_K, tpc,
-                                  2, pts.data_ptr(), heads.data_ptr(),
+            assert harness.rh_seg(pts.shape[1], sums, 0, SEG_LANES, SEG_K,
+                                  tpc, 2, pts.data_ptr(), heads.data_ptr(),
                                   out.data_ptr(), n) == 0
             assert tec.to_affine(out) == tec.to_affine(want)
 

@@ -117,7 +117,7 @@ void split_rows(const uint32_t* a, const uint32_t* b, const uint32_t* K,
 
 // The three passes of the probe kernels run serially: every thread's block
 // through scan_block, the aggregates scanned the same way, the fix-ups.
-template <class E, class C>
+template <class E>
 void scan3(const uint32_t* in, const uint8_t* heads, uint32_t* out, long n,
            int K, bool recurse) {
   const int w = Layout<E>::NA * 8;
@@ -127,23 +127,44 @@ void scan3(const uint32_t* in, const uint8_t* heads, uint32_t* out, long n,
   for (long t = 0; t < T; ++t) {
     long end = (t + 1) * K < n ? (t + 1) * K : n;
     store_point(agg.data() + w * t,
-                probe::scan_block<E, C>(in, heads, out, t * K, end, &flag[t]));
+                probe::scan_block<E>(in, heads, out, t * K, end, &flag[t]));
   }
   if (!recurse || T == 1) return;
-  scan3<E, C>(agg.data(), flag.data(), agg.data(), T, K, true);
+  scan3<E>(agg.data(), flag.data(), agg.data(), T, K, true);
   for (long t = 1; t < T; ++t) {
     long end = (t + 1) * K < n ? (t + 1) * K : n;
-    probe::fixup_block<E, C>(out, heads,
-                             load_point<E>(agg.data() + w * (t - 1)), t * K,
-                             end);
+    probe::fixup_block<E>(out, heads,
+                          load_point<E>(agg.data() + w * (t - 1)), t * K,
+                          end);
   }
 }
 
-template <class E>
-void scan_stage(int comb, int recurse, const uint32_t* in,
-                const uint8_t* heads, uint32_t* out, long n, int K) {
-  if (comb) scan3<E, probe::CombWrap>(in, heads, out, n, K, recurse);
-  else scan3<E, probe::CombPadd>(in, heads, out, n, K, recurse);
+// The copy probe's walk (csrc/probes_scan.cu copy_chunk) on the host:
+// chunks of tpc tiles of lanes x K elements; each chunk's head count, its
+// lanes' shares summed, into the 64-bit word at byte 16 + 8 c of scratch
+// (the scan's count words); then each tile, element j of every lane at a
+// time.
+void copy_host(int na, int lanes, int K, int tpc, const uint32_t* in,
+               const uint8_t* heads, uint32_t* out, uint8_t* scratch,
+               long n) {
+  const int W = na * 8;
+  const long tile = (long)lanes * K, chunk = tile * tpc;
+  uint64_t* cnt = reinterpret_cast<uint64_t*>(scratch + 16);
+  for (long c = 0; c * chunk < n; ++c) {
+    const long c0 = c * chunk, c1 = c0 + chunk < n ? c0 + chunk : n;
+    uint64_t own = 0;
+    for (int l = 0; l < lanes; ++l)
+      for (long i = c0 + l; i < c1; i += lanes)
+        own += (i == 0 || heads[i]) ? 1 : 0;
+    cnt[c] = own;
+    for (long t0 = c0; t0 < c1; t0 += tile)
+      for (int j = 0; j < K; ++j)
+        for (int l = 0; l < lanes; ++l) {
+          const long i = t0 + (long)l * K + j;
+          if (i < n)
+            for (int w = 0; w < W; ++w) out[W * i + w] = in[W * i + w];
+        }
+  }
 }
 
 // Poseidon(2) on the sparse schedule with H hashes a thread, as k_sparse3
@@ -178,14 +199,21 @@ void sparse3_rows(const uint32_t* a, const uint32_t* b, const uint32_t* K,
 // before it.  Then each chunk's tiles in order (the lanes' passes, their
 // scan, their carries, the running prefix), each chunk publishing its
 // point; last, the point look-backs, even chunks before odd ones, so that
-// they meet aggregates, prefixes with a head and inclusive prefixes.
-template <class E>
+// they meet aggregates, prefixes with a head and inclusive prefixes.  Add
+// is every add of the scan (the probes' structure runs it on
+// probe::WrapAdd).
+template <class E, class Add = scan::InlineAdd>
 void seg_host(int sums, int lanes, int K, int tpc, int window,
               const uint32_t* in, const uint8_t* heads, uint32_t* out,
               long n) {
   using namespace scan;
   const int W = Layout<E>::NA * 8;
-  const InlineAdd add;
+  const Add add;
+  auto add_to = [&](uint32_t* o, const Point<E>& v) {
+    Point<E> r;
+    add(r, v, load_point<E>(o));
+    store_point(o, r);
+  };
   const long tile = (long)lanes * K, T = (n + tile - 1) / tile;
   const long C = (T + tpc - 1) / tpc, chunk = tile * tpc;
   auto head = [&](long i) { return i == 0 || heads[i] != 0; };
@@ -239,7 +267,7 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
         for (long i = s; i < e; ++i) {
           const Point<E> p = load_point<E>(in + W * i);
           if (i == s) run_first(r, p, head(i), seen);
-          else run_take(r, p, head(i), emit);
+          else run_take(r, p, head(i), emit, add);
           if (!sums) store_point(out + W * i, r.acc);
           if (!hd && head(i) && i < first_head[c]) first_head[c] = i;
         }
@@ -263,14 +291,13 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
         const bool has = lane_carry(cy, l, span, sf, run, has_run, add);
         if (sums) {
           uint32_t* o = out + W * (base[l] - 1);
-          if (has) store_point(o, padd(cy, load_point<E>(o)));
+          if (has) add_to(o, cy);
           if (!done) deferred[c] = base[l] - 1;
         } else if (has && !done) {
           waiting[(t0 - c0) / tile * lanes + l + c * tpc * lanes] = cy;
         } else if (has) {
           for (uint32_t j = 0; j < runs[l].pre; ++j)
-            store_point(out + W * (s + j),
-                        padd(cy, load_point<E>(out + W * (s + j))));
+            add_to(out + W * (s + j), cy);
         }
       }
       run_extend(run, has_run, hd, span[lanes - 1], sf[lanes - 1] != 0, add);
@@ -292,10 +319,7 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
         add(incl[c], x, agg[c]);
         pst[c] = kPtIncl;
       }
-      if (sums && deferred[c] >= 0) {
-        uint32_t* o = out + W * deferred[c];
-        store_point(o, padd(x, load_point<E>(o)));
-      }
+      if (sums && deferred[c] >= 0) add_to(out + W * deferred[c], x);
       if (!sums)
         for (long t0 = c * chunk; t0 < first_head[c]; t0 += tile)
           for (int l = 0; l < lanes; ++l) {
@@ -305,8 +329,7 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
             if (s < e && (t0 != c * chunk || l != 0))
               add(cx, x, waiting[(t0 - c * chunk) / tile * lanes + l +
                                  c * tpc * lanes]);
-            for (long i = s; i < e; ++i)
-              store_point(out + W * i, padd(cx, load_point<E>(out + W * i)));
+            for (long i = s; i < e; ++i) add_to(out + W * i, cx);
           }
     }
 }
@@ -581,14 +604,14 @@ int rh_probe_split(int mode, const uint32_t* a, const uint32_t* b,
                    const uint32_t* K, uint32_t* out, long n) {
   using namespace probe;
   switch (mode) {
-    case 0: split_rows<PFull, false>(a, b, K, out, n); return 0;
-    case 1: split_rows<PNoProduct, false>(a, b, K, out, n); return 0;
-    case 2: split_rows<PNoReduce, false>(a, b, K, out, n); return 0;
-    case 3: split_rows<PNoFinalSub, false>(a, b, K, out, n); return 0;
-    case 4: split_rows<PNoConst, false>(a, b, K, out, n); return 0;
-    case 5: split_rows<PFull, true>(a, b, K, out, n); return 0;
+    case 0: split_rows<PFull, false, true>(a, b, K, out, n); return 0;
+    case 1: split_rows<PNoProduct, false, true>(a, b, K, out, n); return 0;
+    case 2: split_rows<PNoReduce, false, true>(a, b, K, out, n); return 0;
+    case 3: split_rows<PNoFinalSub, false, true>(a, b, K, out, n); return 0;
+    case 4: split_rows<PNoConst, false, true>(a, b, K, out, n); return 0;
+    case 5: split_rows<PFull, true, true>(a, b, K, out, n); return 0;
     case 6: split_rows<PFull, false>(a, b, K, out, n); return 0;
-    case 7: split_rows<PFull, false, true>(a, b, K, out, n); return 0;
+    case 7: split_rows<PFull, false>(a, b, K, out, n); return 0;
     case 8:
       for (long i = 0; i < n; ++i)
         probe::sparse3_registers(out + 8 * i, a + 8 * i, b + 8 * i, K);
@@ -599,12 +622,18 @@ int rh_probe_split(int mode, const uint32_t* a, const uint32_t* b,
   }
 }
 
-// na = 3 | 6; comb: 0 the complete add, 1 the wrapping add; recurse = 0
-// stops after the local pass
-void rh_probe_scan(int na, int comb, int recurse, const uint32_t* in,
+// the three-pass scan; na = 3 | 6; recurse = 0 stops after the local pass
+void rh_probe_scan(int na, int recurse, const uint32_t* in,
                    const uint8_t* heads, uint32_t* out, long n, int K) {
-  if (na == 3) scan_stage<Fp1>(comb, recurse, in, heads, out, n, K);
-  else scan_stage<Fp2>(comb, recurse, in, heads, out, n, K);
+  if (na == 3) scan3<Fp1>(in, heads, out, n, K, recurse);
+  else scan3<Fp2>(in, heads, out, n, K, recurse);
+}
+
+// the copy probe (copy_host); scratch: 16 + 8 x chunks bytes
+void rh_probe_scan_copy(int na, int lanes, int K, int tpc, const uint32_t* in,
+                        const uint8_t* heads, uint32_t* out, uint8_t* scratch,
+                        long n) {
+  copy_host(na, lanes, K, tpc, in, heads, out, scratch, n);
 }
 
 // csr.cuh's row evaluation on the host (csr_host) at `lanes` x K terms a
@@ -618,12 +647,21 @@ int rh_csr(int lanes, int K, const int* row, const int* col, const int* cid,
 }
 
 // seg_scan.cuh on the host (seg_host): sums = 1 for seg_sums, 0 for
-// seg_scan; returns 1 if a look-back found nothing published before it
-int rh_seg(int na, int sums, int lanes, int K, int tpc, int window,
+// seg_scan; wrap = 1 for every add the wrapping add (the structure probe);
+// returns 1 if a look-back found nothing published before it
+int rh_seg(int na, int sums, int wrap, int lanes, int K, int tpc, int window,
            const uint32_t* in, const uint8_t* heads, uint32_t* out, long n) {
   try {
-    if (na == 3) seg_host<Fp1>(sums, lanes, K, tpc, window, in, heads, out, n);
-    else seg_host<Fp2>(sums, lanes, K, tpc, window, in, heads, out, n);
+    if (na == 3 && wrap)
+      seg_host<Fp1, probe::WrapAdd>(sums, lanes, K, tpc, window, in, heads,
+                                    out, n);
+    else if (na == 3)
+      seg_host<Fp1>(sums, lanes, K, tpc, window, in, heads, out, n);
+    else if (wrap)
+      seg_host<Fp2, probe::WrapAdd>(sums, lanes, K, tpc, window, in, heads,
+                                    out, n);
+    else
+      seg_host<Fp2>(sums, lanes, K, tpc, window, in, heads, out, n);
   } catch (int) {
     return 1;
   }

@@ -1,7 +1,8 @@
 // The measurement probes on the card: the counterparts of the TPU probes
 // in scripts/ (probe_conv.py, debug_f32p.py, micro_probe2.py,
-// micro_probe3.py, probe_segscan.py, probe_kernel_split.py), driven by
-// zkpos_tpu_torch/probes/.  Each TPU probe answered a design question
+// micro_probe3.py, probe_segscan.py), driven by zkpos_tpu_torch/probes/
+// (the Poseidon ablations of probe_kernel_split.py are in
+// probes_split.cu, the single-pass scan's stages in probes_scan.cu).  Each TPU probe answered a design question
 // about one kernel on the TPU; these ask the same of this card:
 //
 //   * k_rate: the issue rate of one instruction class, from one chain of
@@ -13,18 +14,17 @@
 //     fused; bounded by 32-bit multiplies;
 //   * k_latency: the fused product's latency, dependent products on one
 //     warp;
-//   * k_split: the sparse Poseidon(2) of poseidon.cu ablated by policy,
-//     and k_split_hashes, poseidon.cu's k_sparse3 at two or four hashes a
-//     thread;
-//   * k_scan_copy / k_scan_local / k_scan_fixup: the three-pass scan of
-//     seg_scan.cu with a real or a wrapping combine, and its bare copy;
+//   * k_scan_local / k_scan_fixup: the port's first scan, three passes
+//     (one thread a block of K elements), the yardstick of the single-pass scan of
+//     seg_scan.cu; the single-pass scan's own floor and structure are in
+//     probes_scan.cu;
 //   * k_dot_ffma / k_dot_tf32: the weights-first product W(64,64) @ X(64,N)
 //     chained in shared memory, on the FP32 pipes and on the TF32 tensor
 //     cores (mma.sync m16n8k8), as the TPU's probe ran it on its MXU.
 //
-// None of these is on a main path, and none of them is tuned: each is the
-// plain form of its question.  Every entry point returns
-// cudaGetLastError().
+// None of these is on a main path.  Each is the plain form of its
+// question, in the layout of the main-path kernel it asks about where one
+// runs.  Every entry point returns cudaGetLastError().
 #include <cuda_runtime.h>
 
 #include "probes.cuh"
@@ -143,106 +143,11 @@ k_latency(uint32_t* out, const uint32_t* a, const uint32_t* b, int n,
   st8(out + 8 * i, x);
 }
 
-// --- Poseidon(2) ablations: k_sparse3 of poseidon.cu over a policy ----------
+// --- the three-pass scan --------------------------------------------------------
 //
-// BLOCK threads a block; with SYNC a block barrier at every partial round,
-// so no thread leaves early: one past n hashes zeros and stores nothing.
-// REG runs probe::sparse3_registers in place of the policy's schedule.
-
-template <class P, bool STACK, bool SYNC, int BLOCK, bool REG>
-__global__ void __launch_bounds__(BLOCK)
-k_split(uint32_t* out, const uint32_t* a, const uint32_t* b, long long n,
-        long long stride, const uint32_t* K, int z) {
-  long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (!SYNC && i >= n) return;
-  uint32_t x[8], y[8], h[8];
-  pos::zero8(x);
-  pos::zero8(y);
-  if (i < n) {
-    ld8(x, a + stride * i);
-    ld8(y, b + stride * i);
-  }
-  if constexpr (REG) probe::sparse3_registers(h, x, y, K);
-  else probe::sparse3_hash<P, STACK, SYNC>(h, x, y, K, z);
-  if (i < n) st8(out + 8 * i, h);
-}
-
-template <class P, bool STACK, bool SYNC = false, int BLOCK = kBlock,
-          bool REG = false>
-int launch_split(void* out, const void* a, const void* b, long long n,
-                 long long stride, const void* K, int z, void* stream) {
-  if (n > 0)
-    k_split<P, STACK, SYNC, BLOCK, REG><<<grid_for(n, BLOCK), BLOCK, 0,
-                                          (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, stride,
-        (const uint32_t*)K, z);
-  return (int)cudaGetLastError();
-}
-
-// H hashes a thread: poseidon.cu's k_sparse3 (blocks of 1,024, a barrier at
-// every partial round) with the hashes of pos::permute_sparse3<H>
-// interleaved.  Thread x of block g takes hashes g 1024 H + x + 1024 h
-// (h < H), so a warp's reads of hash h are neighbours; a hash past n runs
-// on zeros and is not stored.
-template <int H>
-__global__ void __launch_bounds__(1024, 1)
-k_split_hashes(uint32_t* out, const uint32_t* a, const uint32_t* b,
-               long long n, long long stride, const uint32_t* K) {
-  const long long base = (long long)blockIdx.x * 1024 * H + threadIdx.x;
-  uint32_t x[H][3][8];
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const long long i = base + (long long)h * 1024;
-    pos::zero8(x[h][0]);
-    pos::zero8(x[h][1]);
-    pos::zero8(x[h][2]);
-    if (i < n) {
-      ld8(x[h][1], a + stride * i);
-      ld8(x[h][2], b + stride * i);
-    }
-  }
-  pos::permute_sparse3<H, true>(x, K);
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const long long i = base + (long long)h * 1024;
-    if (i < n) st8(out + 8 * i, x[h][pos::kOutputIndex]);
-  }
-}
-
-template <int H>
-int launch_split_hashes(void* out, const void* a, const void* b, long long n,
-                        long long stride, const void* K, void* stream) {
-  if (n > 0)
-    k_split_hashes<H><<<grid_for(n, 1024 * H), 1024, 0,
-                        (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, stride,
-        (const uint32_t*)K);
-  return (int)cudaGetLastError();
-}
-
-// --- segmented-scan stages ------------------------------------------------------
-//
-// The thread-to-data mapping of seg_scan.cu: thread t owns the K elements
-// from t * K.
+// Thread t owns the K elements from t * K.
 
 template <class E>
-__global__ void k_scan_copy(const uint32_t* in, const uint8_t* heads,
-                            uint32_t* out, uint8_t* agg_flag, long long n,
-                            int K) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long start = t * K;
-  if (start >= n) return;
-  long long end = start + K < n ? start + K : n;
-  const int w = Layout<E>::NA * 8;
-  uint8_t f = 0;
-  for (long long i = start; i < end; ++i) {
-    store_point(out + w * i, load_point<E>(in + w * i));
-    f |= heads[i];
-  }
-  agg_flag[t] = f;
-}
-
-template <class E, class C>
 __global__ void k_scan_local(const uint32_t* in, const uint8_t* heads,
                              uint32_t* out, uint32_t* agg, uint8_t* agg_flag,
                              long long n, int K) {
@@ -252,11 +157,11 @@ __global__ void k_scan_local(const uint32_t* in, const uint8_t* heads,
   long long end = start + K < n ? start + K : n;
   const int w = Layout<E>::NA * 8;
   Point<E> acc =
-      probe::scan_block<E, C>(in, heads, out, start, end, agg_flag + t);
+      probe::scan_block<E>(in, heads, out, start, end, agg_flag + t);
   store_point(agg + w * t, acc);
 }
 
-template <class E, class C>
+template <class E>
 __global__ void k_scan_fixup(uint32_t* out, const uint8_t* heads,
                              const uint32_t* carry, long long n, int K) {
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -264,42 +169,30 @@ __global__ void k_scan_fixup(uint32_t* out, const uint8_t* heads,
   if (t == 0 || start >= n) return;
   long long end = start + K < n ? start + K : n;
   const int w = Layout<E>::NA * 8;
-  probe::fixup_block<E, C>(out, heads, load_point<E>(carry + w * (t - 1)),
-                           start, end);
+  probe::fixup_block<E>(out, heads, load_point<E>(carry + w * (t - 1)),
+                        start, end);
 }
 
-template <class E, class C>
+template <class E>
 int scan_local(const void* in, const void* heads, void* out, void* agg,
                void* agg_flag, long long n, int K, void* stream) {
   long long threads = (n + K - 1) / K;
   if (n > 0)
-    k_scan_local<E, C><<<grid_for(threads, kBlock), kBlock, 0,
-                         (cudaStream_t)stream>>>(
+    k_scan_local<E><<<grid_for(threads, kBlock), kBlock, 0,
+                      (cudaStream_t)stream>>>(
         (const uint32_t*)in, (const uint8_t*)heads, (uint32_t*)out,
         (uint32_t*)agg, (uint8_t*)agg_flag, n, K);
   return (int)cudaGetLastError();
 }
 
-template <class E, class C>
+template <class E>
 int scan_fixup(void* out, const void* heads, const void* carry, long long n,
                int K, void* stream) {
   long long threads = (n + K - 1) / K;
   if (threads > 1)
-    k_scan_fixup<E, C><<<grid_for(threads, kBlock), kBlock, 0,
-                         (cudaStream_t)stream>>>(
+    k_scan_fixup<E><<<grid_for(threads, kBlock), kBlock, 0,
+                      (cudaStream_t)stream>>>(
         (uint32_t*)out, (const uint8_t*)heads, (const uint32_t*)carry, n, K);
-  return (int)cudaGetLastError();
-}
-
-template <class E>
-int scan_copy(const void* in, const void* heads, void* out, void* agg_flag,
-              long long n, int K, void* stream) {
-  long long threads = (n + K - 1) / K;
-  if (n > 0)
-    k_scan_copy<E><<<grid_for(threads, kBlock), kBlock, 0,
-                     (cudaStream_t)stream>>>(
-        (const uint32_t*)in, (const uint8_t*)heads, (uint32_t*)out,
-        (uint8_t*)agg_flag, n, K);
   return (int)cudaGetLastError();
 }
 
@@ -548,58 +441,21 @@ int zk_probe_latency(void* out, const void* a, const void* b, int n,
   return (int)cudaGetLastError();
 }
 
-// mode: 0 full, 1 noproduct, 2 noreduce, 3 nofinalsub, 4 noconst,
-// 5 stackstate (z must be 0), 6 block1024, 7 lockstep, 8 registers,
-// 9 hashes2, 10 hashes4; a, b, stride, K as zk_poseidon_sparse3
-int zk_probe_split(int mode, void* out, const void* a, const void* b,
-                   long long n, long long stride, const void* K, int z,
-                   void* stream) {
-  using namespace probe;
-  switch (mode) {
-    case 0: return launch_split<PFull, false>(out, a, b, n, stride, K, z, stream);
-    case 1: return launch_split<PNoProduct, false>(out, a, b, n, stride, K, z, stream);
-    case 2: return launch_split<PNoReduce, false>(out, a, b, n, stride, K, z, stream);
-    case 3: return launch_split<PNoFinalSub, false>(out, a, b, n, stride, K, z, stream);
-    case 4: return launch_split<PNoConst, false>(out, a, b, n, stride, K, z, stream);
-    case 5: return launch_split<PFull, true>(out, a, b, n, stride, K, z, stream);
-    case 6: return launch_split<PFull, false, false, 1024>(out, a, b, n, stride, K, z, stream);
-    case 7: return launch_split<PFull, false, true, 1024>(out, a, b, n, stride, K, z, stream);
-    case 8: return launch_split<PFull, false, false, kBlock, true>(out, a, b, n, stride, K, z, stream);
-    case 9: return launch_split_hashes<2>(out, a, b, n, stride, K, stream);
-    case 10: return launch_split_hashes<4>(out, a, b, n, stride, K, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// na = 3 (G1) or 6 (G2); the bare copy in the scan's mapping
-int zk_probe_scan_copy(int na, const void* in, const void* heads, void* out,
-                       void* agg_flag, long long n, int K, void* stream) {
-  if (na == 3) return scan_copy<Fp1>(in, heads, out, agg_flag, n, K, stream);
-  return scan_copy<Fp2>(in, heads, out, agg_flag, n, K, stream);
-}
-
-// comb: 0 the complete add, 1 the wrapping limb add; as zk_seg_scan_local
-int zk_probe_scan_local(int na, int comb, const void* in, const void* heads,
-                        void* out, void* agg, void* agg_flag, long long n,
-                        int K, void* stream) {
-  using probe::CombPadd;
-  using probe::CombWrap;
+// The three-pass scan on the complete add: the local pass (out, the
+// per-thread aggregates and head flags), and the fix-up from the scanned
+// aggregates; na = 3 (G1) or 6 (G2)
+int zk_probe_scan_local(int na, const void* in, const void* heads, void* out,
+                        void* agg, void* agg_flag, long long n, int K,
+                        void* stream) {
   if (na == 3)
-    return comb ? scan_local<Fp1, CombWrap>(in, heads, out, agg, agg_flag, n, K, stream)
-                : scan_local<Fp1, CombPadd>(in, heads, out, agg, agg_flag, n, K, stream);
-  return comb ? scan_local<Fp2, CombWrap>(in, heads, out, agg, agg_flag, n, K, stream)
-              : scan_local<Fp2, CombPadd>(in, heads, out, agg, agg_flag, n, K, stream);
+    return scan_local<Fp1>(in, heads, out, agg, agg_flag, n, K, stream);
+  return scan_local<Fp2>(in, heads, out, agg, agg_flag, n, K, stream);
 }
 
-int zk_probe_scan_fixup(int na, int comb, void* out, const void* heads,
+int zk_probe_scan_fixup(int na, void* out, const void* heads,
                         const void* carry, long long n, int K, void* stream) {
-  using probe::CombPadd;
-  using probe::CombWrap;
-  if (na == 3)
-    return comb ? scan_fixup<Fp1, CombWrap>(out, heads, carry, n, K, stream)
-                : scan_fixup<Fp1, CombPadd>(out, heads, carry, n, K, stream);
-  return comb ? scan_fixup<Fp2, CombWrap>(out, heads, carry, n, K, stream)
-              : scan_fixup<Fp2, CombPadd>(out, heads, carry, n, K, stream);
+  if (na == 3) return scan_fixup<Fp1>(out, heads, carry, n, K, stream);
+  return scan_fixup<Fp2>(out, heads, carry, n, K, stream);
 }
 
 // route: 0 FP32 FFMA, 1 TF32 mma.sync; mix: 0 k_dot, 1 k_mix.  W (64, 64),

@@ -1,6 +1,6 @@
 // Device functions of the measurement probes (zkpos_tpu_torch/probes/),
 // the counterparts of the TPU probes in scripts/.  Each piece computes
-// what its TPU probe computed; csrc/probes.cu wraps them in kernels, and
+// what its TPU probe computed; csrc/probes*.cu wrap them in kernels, and
 // g++ compiles this header too, which is how tests/test_torch_rehearsal.py
 // holds every piece against its plain PyTorch version on the CPU.
 //
@@ -15,9 +15,10 @@
 //     its final subtraction (scripts/debug_f32p.py:38,73);
 //   * the sparse Poseidon(2) of poseidon.cuh as one template over an
 //     ablation policy (scripts/probe_kernel_split.py:28);
-//   * the segmented scan's serial block pass and fix-up over a combine
-//     policy: the real complete add of ec.cuh or a limb-wise wrapping add
-//     (scripts/probe_segscan.py:19,101).
+//   * the three-pass segmented scan's serial block pass and fix-up on
+//     ec.cuh's complete add (scripts/probe_segscan.py:101), and the
+//     limb-wise wrapping add that the single-pass scan's structure probe
+//     runs in place of it (scripts/probe_segscan.py:19).
 //
 // Nothing here is on a main path: the kernels of seg_scan.cu and
 // poseidon.cu are left as they are, and the ablations are copies of their
@@ -488,19 +489,15 @@ FF_HD void sparse3_registers(uint32_t* out, const uint32_t* a,
   pos::copy8(out, x[pos::kOutputIndex]);
 }
 
-// --- segmented-scan pieces over a combine policy ----------------------------
+// --- segmented-scan pieces ------------------------------------------------
 
-// the real complete add (ec.cuh)
-struct CombPadd {
-  template <class E>
-  static FF_HD ff::Point<E> op(const ff::Point<E>& a, const ff::Point<E>& b) {
-    return ff::padd(a, b);
-  }
-};
-
-// a limb-wise wrapping add of every coordinate: the scan's structure with
-// almost no arithmetic (TPU stages 1-4 combined with `x + part`)
-struct CombWrap {
+// A limb-wise wrapping add of every coordinate, r = p + q (r may alias
+// either): the scan's structure with almost no arithmetic (TPU stages 1-4
+// combined with `x + part`).  It is associative and commutative limb by
+// limb, so a scan over it equals the limb-wise prefix sums mod 2^32 in any
+// order of adds.  seg_scan.cuh's pieces take it in place of the complete
+// add (csrc/probes_scan.cu's structure kernels).
+struct WrapAdd {
   static FF_HD ff::Fp1 wrap(const ff::Fp1& a, const ff::Fp1& b) {
     ff::Fp1 r;
     FF_UNROLL
@@ -511,15 +508,17 @@ struct CombWrap {
     return ff::Fp2{wrap(a.c0, b.c0), wrap(a.c1, b.c1)};
   }
   template <class E>
-  static FF_HD ff::Point<E> op(const ff::Point<E>& a, const ff::Point<E>& b) {
-    return ff::Point<E>{wrap(a.x, b.x), wrap(a.y, b.y), wrap(a.z, b.z)};
+  FF_HD void operator()(ff::Point<E>& r, const ff::Point<E>& p,
+                        const ff::Point<E>& q) const {
+    r = ff::Point<E>{wrap(p.x, q.x), wrap(p.y, q.y), wrap(p.z, q.z)};
   }
 };
 
-// seg_scan.cu's pass 1 for the block [start, end) of a stream of points of
-// w words: out holds its serial scan; returns the block's aggregate and
-// whether the block held a head
-template <class E, class C>
+// The three-pass scan's pass 1 (the port's first seg_scan.cu) for the
+// block [start, end) of a stream of points of w words: out holds its
+// serial scan; returns the block's aggregate and whether the block held a
+// head
+template <class E>
 FF_HD ff::Point<E> scan_block(const uint32_t* in, const uint8_t* heads,
                               uint32_t* out, long long start, long long end,
                               uint8_t* flag) {
@@ -533,7 +532,7 @@ FF_HD ff::Point<E> scan_block(const uint32_t* in, const uint8_t* heads,
       acc = p;
       f = 1;
     } else {
-      acc = C::template op<E>(acc, p);
+      acc = ff::padd(acc, p);
     }
     ff::store_point(out + w * i, acc);
   }
@@ -541,16 +540,16 @@ FF_HD ff::Point<E> scan_block(const uint32_t* in, const uint8_t* heads,
   return acc;
 }
 
-// seg_scan.cu's fix-up of one block: the carry of the blocks before it
-// added to its elements before its first head
-template <class E, class C>
+// The three-pass scan's fix-up of one block: the carry of the blocks
+// before it added to its elements before its first head
+template <class E>
 FF_HD void fixup_block(uint32_t* out, const uint8_t* heads,
                        const ff::Point<E>& carry, long long start,
                        long long end) {
   const int w = ff::Layout<E>::NA * 8;
   for (long long i = start; i < end && !heads[i]; ++i)
     ff::store_point(out + w * i,
-                    C::template op<E>(carry, ff::load_point<E>(out + w * i)));
+                    ff::padd(carry, ff::load_point<E>(out + w * i)));
 }
 
 }  // namespace probe

@@ -76,28 +76,14 @@ FF_HD void run_first(Run<E>& r, const Point<E>& p, bool head,
   r.pre = r.open;
 }
 
-// Every later element of the range.  A head closes the current segment
-// first: emit(r) sees its sum in r.acc at index r.idx (partial while
-// r.open).
-SCAN_HD_TEMPLATE
-template <class E, class Emit>
-FF_HD void run_take(Run<E>& r, const Point<E>& p, bool head, Emit& emit) {
-  if (head) {
-    emit(r);
-    r.acc = p;
-    r.open = 0;
-    ++r.idx;
-  } else {
-    r.acc = padd(r.acc, p);
-    r.pre += r.open;
-  }
-}
-
-// The complete add outside the pass, r = p + q (r may alias either):
-// inlined on the host; on the card one out-of-line copy (ColdAdd) serves
-// them all, keeping the kernel to one inlined add, the pass's (inlining
-// the lanes' scan's and seg_scan's fix-up's adds too made neither faster
-// and the G2 source's build two and a half times as long, PERF.md).
+// The complete add, r = p + q (r may alias either), inlined: the pass's
+// add, and on the host every add.  On the card one out-of-line copy
+// (ColdAdd) serves the adds outside the pass, keeping the kernel to one
+// inlined add (inlining the lanes' scan's and seg_scan's fix-up's adds too
+// made neither faster and the G2 source's build two and a half times as
+// long, PERF.md).  The pieces below take the add as a parameter, so that
+// the probes run the same structure over a cheaper one
+// (csrc/probes_scan.cu).
 struct InlineAdd {
   template <class E>
   FF_HD void operator()(Point<E>& r, const Point<E>& p,
@@ -105,6 +91,24 @@ struct InlineAdd {
     r = padd(p, q);
   }
 };
+
+// Every later element of the range.  A head closes the current segment
+// first: emit(r) sees its sum in r.acc at index r.idx (partial while
+// r.open).
+SCAN_HD_TEMPLATE
+template <class E, class Emit, class Add>
+FF_HD void run_take(Run<E>& r, const Point<E>& p, bool head, Emit& emit,
+                    const Add& add) {
+  if (head) {
+    emit(r);
+    r.acc = p;
+    r.open = 0;
+    ++r.idx;
+  } else {
+    add(r.acc, r.acc, p);
+    r.pre += r.open;
+  }
+}
 
 // Round d of the lanes' inclusive scan, for lane l.  A lane's span is its
 // sum after its last head (all of it if it has none) and a flag: whether it
@@ -388,11 +392,11 @@ __device__ __forceinline__ uint64_t count_lookback(uint64_t* cnt, long long t,
 
 // seg_scan's carries: each lane adds `carry` to its first `pre` elements
 // of the tile at t0, the warp moving them through `stage` as the pass does.
-template <class E, int K>
+template <class E, int K, class Add>
 __device__ __forceinline__ void fix_up(uint32_t* out, uint32_t* stage,
                                       long long t0, long long n, uint32_t pre,
                                       const Point<E>& carry, int lane,
-                                      const ColdAdd& add) {
+                                      const Add& add) {
   Point<E>* slot = reinterpret_cast<Point<E>*>(stage);
   __threadfence_block();    // the pass's stores before these reads
   const int len = (int)__reduce_max_sync(kFull, pre);
@@ -411,13 +415,13 @@ __device__ __forceinline__ void fix_up(uint32_t* out, uint32_t* stage,
 
 // The point look-back of chunk c (lane 0): the prefix just before it, into
 // the x slot, from the published points of the chunks before it.
-template <class E>
+template <class E, class Add>
 __device__ __forceinline__ void point_lookback(const uint32_t* pst,
                                               const uint32_t* pay, long long c,
                                               uint32_t* smem_x,
                                               uint32_t* smem_s,
                                               uint32_t* smem_tmp,
-                                              const ColdAdd& add) {
+                                              const Add& add) {
   const int W = Words<E>::W;
   Point<E>& x = *reinterpret_cast<Point<E>*>(smem_x);
   Point<E>& s = *reinterpret_cast<Point<E>*>(smem_s);
@@ -433,8 +437,9 @@ __device__ __forceinline__ void point_lookback(const uint32_t* pst,
 
 // One chunk (one warp): tpc tiles of kLanes x K elements in a row, the
 // chunk's running prefix carried from each tile to the next; `smem` is
-// the warp's own share of shared memory.
-template <class E, int MODE, int K>
+// the warp's own share of shared memory.  Pass is the serial pass's add,
+// Add every other.
+template <class E, int MODE, int K, class Pass, class Add>
 __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
   static_assert(K <= 64, "a lane's heads are one 64-bit mask");
   typedef WarpSmem<E, MODE> S;
@@ -460,7 +465,8 @@ __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
   Point<E>& x = *reinterpret_cast<Point<E>*>(smem + S::x);
   Point<E>* ost = reinterpret_cast<Point<E>*>(smem + S::ostage);
   uint32_t* flags = smem + S::flags;
-  const ColdAdd add;
+  const Pass pass;
+  const Add add;
 
   long long c = 0;
   if (lane == 0) c = atomicAdd(counter, 1u);
@@ -532,7 +538,7 @@ __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
         const Point<E>& p = pts(j)[lane];
         const bool h = (mask >> j) & 1;
         if (j == 0) run_first(r, p, h, base);
-        else run_take(r, p, h, emit);
+        else run_take(r, p, h, emit, pass);
         if constexpr (MODE == kScan) ost[lane] = r.acc;
       }
       __syncwarp();
@@ -627,12 +633,13 @@ __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
   }
 }
 
-template <class E, int MODE, int K>
+template <class E, int MODE, int K, class Pass = InlineAdd,
+          class Add = ColdAdd>
 __device__ __forceinline__ void seg_kernel_body(const Args& a) {
   extern __shared__ uint4 seg_smem[];
   uint32_t* smem = reinterpret_cast<uint32_t*>(seg_smem) +
                    (threadIdx.x / kLanes) * WarpSmem<E, MODE>::words;
-  seg_chunk<E, MODE, K>(a, smem);
+  seg_chunk<E, MODE, K, Pass, Add>(a, smem);
 }
 
 template <class E>
@@ -640,16 +647,12 @@ inline long long scratch_bytes(long long n, int K, bool scan) {
   return Scratch(n, kLanes * K, Words<E>::W, scan).bytes;
 }
 
-// Resets the scratch's counter and status words on the stream, then
-// launches as many warps as the card holds at once (fewer for a short
-// stream), each a chunk of whole tiles: a segment longer than a chunk
-// makes a look-back chain one link a chunk, not one a tile.
-template <class E, int MODE, int K, int WARPS>
-int launch(void (*kernel)(Args), Args a, void* stream) {
-  const Scratch lay(a.n, kLanes * K, Words<E>::W, MODE == kScan);
-  const long long tiles = lay.chunks;
-  if (tiles == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
+// Tiles a chunk over a stream of `tiles` tiles: as many warps as the card
+// holds at once (fewer for a short stream), each a chunk of whole tiles, so
+// that a segment longer than a chunk makes a look-back chain one link a
+// chunk, not one a tile.
+template <class E, int MODE, int WARPS>
+long long tiles_per_chunk(void (*kernel)(Args), long long tiles) {
   const int smem = WARPS * WarpSmem<E, MODE>::bytes;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
@@ -659,11 +662,22 @@ int launch(void (*kernel)(Args), Args a, void* stream) {
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                 WARPS * kLanes, smem);
   const long long warps = (long long)(per_sm > 0 ? per_sm : 1) * sms * WARPS;
-  a.tpc = (tiles + warps - 1) / warps;
+  return (tiles + warps - 1) / warps;
+}
+
+// Resets the scratch's counter and status words on the stream, then
+// launches one warp a chunk of tiles_per_chunk tiles.
+template <class E, int MODE, int K, int WARPS>
+int launch(void (*kernel)(Args), Args a, void* stream) {
+  const Scratch lay(a.n, kLanes * K, Words<E>::W, MODE == kScan);
+  const long long tiles = lay.chunks;
+  if (tiles == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  a.tpc = tiles_per_chunk<E, MODE, WARPS>(kernel, tiles);
   const long long chunks = (tiles + a.tpc - 1) / a.tpc;
   cudaMemsetAsync(a.scratch, 0, (size_t)lay.reset, st);
-  kernel<<<(unsigned)((chunks + WARPS - 1) / WARPS), WARPS * kLanes, smem,
-           st>>>(a);
+  kernel<<<(unsigned)((chunks + WARPS - 1) / WARPS), WARPS * kLanes,
+           WARPS * WarpSmem<E, MODE>::bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 

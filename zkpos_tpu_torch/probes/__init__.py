@@ -1,9 +1,10 @@
 """The port's measurement path: counterparts of the TPU probes in scripts/.
 
 Each module keeps its TPU script's name and holds one kernel family of
-csrc/probes.cu with its plain PyTorch version: ``rates`` (micro_probe2.py,
+csrc/probes*.cu with its plain PyTorch version: ``rates`` (micro_probe2.py,
 micro_probe3.py's VPU bodies), ``probe_conv``, ``debug_product``
-(debug_f32p.py), ``probe_kernel_split``, ``probe_segscan`` and
+(debug_f32p.py), ``probe_kernel_split`` (probes_split.cu),
+``probe_segscan`` (probes.cu and probes_scan.cu) and
 ``probe_dot`` (micro_probe3.py's k_dot and k_mix); ``latency`` is the
 port's own (the product's latency on a lone warp, which the hash chain
 pays).  Each module's ``run``

@@ -3,11 +3,13 @@
 Counterpart of scripts/probe_kernel_split.py:28-127 (``build_variant(mode)
 .kern``), which ran the TPU's fused ``_perm2_kernel`` with one part of its
 work taken out at a time and read each part's share of the full time.
-Here the kernel is the sparse schedule of csrc/poseidon.cu's
-``k_sparse3`` at one hash a thread in blocks of 128 threads, without the
-main kernel's block barrier, rebuilt as one template over a policy in
-csrc/probes.cuh (``probe::Sparse3``); the main path's kernel is left as
-it is.  Variants, with the TPU mode each stands for:
+Here the kernel is the tree's node hash as it runs, csrc/poseidon.cu's
+``k_sparse3`` (the sparse schedule at one hash a thread, blocks of 1,024
+threads, one an SM, a block barrier at every partial round), rebuilt as
+one template over a policy in csrc/probes.cuh (``probe::Sparse3``), its
+kernels in csrc/probes_split.cu; the main path's kernel is left as it
+is.  Variants, with the TPU mode each
+stands for; the first six in k_sparse3's layout:
 
 * ``full``: the schedule as it is; equal to ops/poseidon_sparse
   .hash2_mont_sparse bit for bit;
@@ -19,21 +21,22 @@ it is.  Variants, with the TPU mode each stands for:
   subtraction, a lazy bound;
 * ``noconst``: every constant-table read replaced by a value computed from
   the entry's index (``noconst_table``; no load issued, and the values
-  differ by entry, so no product of the schedule can be merged), the
-  first suspect of PERF.md's sparse-versus-plain question;
+  differ by entry, so no product of the schedule can be merged);
 * ``stackstate``: the state sent through a local array by a lane index the
-  compiler cannot resolve, as k_plain's state is, the second suspect;
-* ``block1024``: ``full`` in blocks of 1,024 threads, one to an SM;
-* ``lockstep``: ``block1024`` with a block barrier at every partial round,
-  the main kernel's layout (PERF.md: the warps of an SM that run the same
-  round's instructions together);
-* ``registers``: ``full`` with every lane loop unrolled, so that the state
-  stays in registers (``probe::sparse3_registers``);
-* ``hashes2`` / ``hashes4``: the main kernel itself (``lockstep``'s layout,
-  hash loops unrolled) at two or four hashes a thread, interleaved so that
-  each partial round has independent products (``k_split_hashes``).
+  compiler cannot resolve, as k_plain's state is;
+* ``block1024``: ``full`` in blocks of 1,024 threads without the barrier;
+* ``block128``: ``full`` in blocks of 128 threads without the barrier, the
+  tree hash's first layout, which the other ablations ran in before they
+  moved to k_sparse3's;
+* ``registers``: ``block128`` with every lane loop unrolled, so that the
+  state stays in registers (``probe::sparse3_registers``);
+* ``hashes2`` / ``hashes4``: the main kernel itself (hash loops unrolled)
+  at two or four hashes a thread, interleaved so that each partial round
+  has independent products (``k_split_hashes``).
 
-Each variant is defined by its plain version (``plain_split``), which the
+A variant in k_sparse3's layout has at most 64 registers a thread; one
+whose policy needs more spills, and its row's ptxas figures say so.  Each
+variant is defined by its plain version (``plain_split``), which the
 g++ rehearsal and the card hold the kernel to bit for bit, so a variant
 whose body the compiler dropped cannot pass.  The run is the tree path's
 first level: 2^26 pairs read in place with a row stride of 16 words, as
@@ -55,25 +58,26 @@ from ..utils.device import resolve
 from . import common as C
 
 MODES = ("full", "noproduct", "noreduce", "nofinalsub", "noconst",
-         "stackstate", "block1024", "lockstep", "registers", "hashes2",
+         "stackstate", "block1024", "block128", "registers", "hashes2",
          "hashes4")
 # (state through the stack, barrier each partial round, threads a block)
-# of the modes that change the layout; the others: (0, 0, 128)
-LAYOUT = {"stackstate": (1, 0, 128), "block1024": (0, 0, 1024),
-          "lockstep": (0, 1, 1024)}
+# of the k_split modes off k_sparse3's layout; the others: (0, 1, 1024)
+LAYOUT = {"stackstate": (1, 1, 1024), "block1024": (0, 0, 1024),
+          "block128": (0, 0, 128), "registers": (0, 0, 128)}
 # the modes on probe::sparse3_registers (the last template flag)
 REGISTERS = ("registers",)
 # the modes on k_split_hashes, by hashes a thread
 HASHES = {"hashes2": 2, "hashes4": 4}
 REPLACES = "scripts/probe_kernel_split.py:86"
+SOURCE = "zkpos_tpu_torch/csrc/probes_split.cu"
 LOG_LEAVES = 27         # the tree path's leaves: 2^26 pairs at level 0
-REPS = 3
+REPS = 2
 CHECK_N = 1 << 10
 MONTS = 604             # Montgomery products of one sparse Poseidon(2)
 MULS = {"full": C.MULS_PER_MONT, "noproduct": 8, "noreduce": 128,
         "nofinalsub": C.MULS_PER_MONT, "noconst": C.MULS_PER_MONT,
         "stackstate": C.MULS_PER_MONT, "block1024": C.MULS_PER_MONT,
-        "lockstep": C.MULS_PER_MONT, "registers": C.MULS_PER_MONT,
+        "block128": C.MULS_PER_MONT, "registers": C.MULS_PER_MONT,
         "hashes2": C.MULS_PER_MONT, "hashes4": C.MULS_PER_MONT}
 M32 = 0xFFFFFFFF
 # probes.cuh's PNoConst: limb i of entry e is (8 e + i + 1) * NOCONST_MUL
@@ -263,7 +267,7 @@ def run(device=None, log=print):
             err = C.max_abs_err(got, p)
             if m == "full" and not full_eq:
                 err = max(err, 1)
-            stack, sync, block = LAYOUT.get(m, (0, 0, 128))
+            stack, sync, block = LAYOUT.get(m, (0, 1, 1024))
             key = (f"k_split_hashesILi{HASHES[m]}E" if m in HASHES else
                    f"{_policy(m)}ELb{stack}ELb{sync}ELi{block}ELb"
                    f"{int(m in REGISTERS)}E")
@@ -272,7 +276,7 @@ def run(device=None, log=print):
                       96 * n, MONTS * MULS[m] * n / C.INT32_OPS_PER_S, err,
                       reps=REPS, mhash_per_s=round(n / times[m] / 1e3, 3),
                       share=round((t_full - times[m]) / t_full, 4),
-                      full_equals_main_kernel=full_eq,
+                      full_equals_main_kernel=full_eq, source=SOURCE,
                       ptxas=next(iter(res.values()), None), device=dev.type)
             log(f"probe split_{m}: {r['mhash_per_s']} M hashes/s, share "
                 f"{100 * r['share']:.1f} %, ptxas {r['ptxas']}, err {err}")

@@ -4,25 +4,31 @@ Counterpart of scripts/probe_segscan.py:19-192 (``kernel``, stages 1-4:
 the scan's structure with a dummy ``x + part`` combine; ``main6.kern``,
 stages 6-8: the real G1 add core with the carry merge only, one
 Hillis-Steele step, all steps), which cut the TPU's ``_seg_scan_kernel``
-apart to find what its time went to.  The port's first scan was three
-passes: a serial local pass of K = 16 elements a thread, the
-recursive scan of the per-thread aggregates, and the fix-up; csrc/seg_scan.cu
-now runs one pass.  The stages here reproduce the three-pass design, each
-run over a whole stream by the kernels of csrc/probes.cu (built on ec.cuh's
-load, store and complete add):
+apart to find what its time went to.  Stages 1-4 run on the mapping of the
+scan that the port runs, csrc/seg_scan.cuh's single pass (a warp a chunk
+of whole tiles of 32 lanes x 64 elements, each tile streamed through
+shared memory; csrc/probes_scan.cu):
 
-* ``copy``: every point loaded and stored with its head flag in the scan's
-  thread mapping, no combine: the byte floor of that mapping;
-* ``structure``: all three passes, the combine a limb-wise wrapping add
-  (TPU stages 1-4);
-* ``local``: the local pass with the real add (stage 6);
+* ``copy``: every point streamed through shared memory and back, and each
+  chunk's head count, with no add: the byte floor of that mapping (TPU
+  stage 1);
+* ``structure``: seg_scan (every position) with a limb-wise wrapping add
+  in place of the complete add wherever one runs -- the lanes' passes,
+  their Hillis-Steele scan, the carries, the look-back and the fix-up
+  (TPU stages 2-4): the scan's structure without curve arithmetic;
+* ``lookback_k32``: the single-pass segment sums (as ops/ec.seg_sums) at
+  32 elements a lane where csrc/seg_scan.cu takes 64, held against
+  ops/ec.seg_sums by affine value.
+
+Stages 6-8 keep the port's first scan, three passes on the complete add
+(csrc/probes.cu: a serial local pass of K = 16 elements a thread, the
+recursive scan of the per-thread aggregates, the fix-up), as the yardstick
+of the single pass that replaced it:
+
+* ``local``: the local pass (stage 6);
 * ``local_agg``: that and the recursive scan of the aggregates (stage 7);
-* ``full``: the whole scan (stage 8): the earlier design of ops/ec.seg_scan,
-  kept as the yardstick of the single-pass kernel that replaced it, and
-  held against it by affine value;
-* ``lookback_k32``: the single-pass segment sums (csrc/seg_scan.cuh, as
-  ops/ec.seg_sums) at 32 elements a lane where csrc/seg_scan.cu takes 64
-  (csrc/probes_scan.cu), held against ops/ec.seg_sums by affine value.
+* ``full``: the whole scan (stage 8), held against ops/ec.seg_scan by
+  affine value.
 
 Streams: the prove path's sizes, G1 at 30,795,264 and G2 at 42,343,488
 points (the witness streams of its A and B MSMs), points drawn from a pool
@@ -33,7 +39,8 @@ products in G1, its two by 3b = 9 being doublings; 42 in G2) at the INT32
 rate -- for the whole scan and the
 segment sums the function's own (one for each element that is not a head),
 for the partial stages those the three-pass design makes on this head
-pattern -- or the stream's bytes.
+pattern -- or the stream's bytes (copy and structure: its points read and
+written and its heads read).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from ..utils.device import resolve
 from . import common as C
 
 K = 16          # elements a thread in the three-pass design
+TILE = 32 * 64  # elements a tile of the single pass: 32 lanes x 64
 STAGES = ("copy", "structure", "local", "local_agg", "full", "lookback_k32")
 REPLACES = {"copy": "scripts/probe_segscan.py:19",
             "structure": "scripts/probe_segscan.py:19",
@@ -57,13 +65,19 @@ REPLACES = {"copy": "scripts/probe_segscan.py:19",
             "local_agg": "scripts/probe_segscan.py:101",
             "full": "scripts/probe_segscan.py:101",
             "lookback_k32": "zkpos_tpu/ops/ec_pallas.py:268"}
-SOURCES = {"lookback_k32": "zkpos_tpu_torch/csrc/probes_scan.cu"}
+# the single-pass stages: their kernels (csrc/probes_scan.cu) and the
+# zk_probe_scan_bytes stage numbers of their scratch
+SINGLE_PASS = {"copy": 0, "structure": 1, "lookback_k32": 2}
+SOURCE = "zkpos_tpu_torch/csrc/probes_scan.cu"
 STREAMS = {"g1": 30_795_264, "g2": 42_343_488}
 # mean segment length of the prove path's A (G1) and B (G2) witness
 # streams, as chip_smoke.py measures them on the card (PERF.md, section 4)
 SEGMENT_MEAN = {"g1": 31.5, "g2": 492.3}
 MONTS_PER_ADD = {3: 12, 6: 42}
 CHECK_N = K ** 4        # a prefix the plain versions check: whole blocks
+# structure's prefix: past the card's resident warps, so chunks of two
+# tiles or more and look-backs across them (copy is checked whole)
+CHECK_STRUCTURE_N = 1 << 23
 REPS = 3                # timed launches of each stage
 
 
@@ -83,18 +97,35 @@ def _block_flags(heads: torch.Tensor) -> torch.Tensor:
 
 def _wrap_scan(pts: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
     """Segmented scan under the limb-wise wrapping add: prefix sums of
-    each limb mod 2^32, less the sum before the segment's head."""
+    each limb mod 2^32, less the sum before the segment's head.  The limbs
+    are scanned as rows (the innermost dimension), which the card scans in
+    parallel."""
     n = pts.shape[0]
-    x = pts.long() & 0xFFFFFFFF
-    cs = torch.cumsum(x, 0)
+    x = (pts.reshape(n, -1).long() & 0xFFFFFFFF).T.contiguous()
+    cs = torch.cumsum(x, 1)
     idx = torch.arange(n, device=pts.device)
     h = heads.bool().clone()
     h[0] = True
     start = torch.cummax(torch.where(h, idx, torch.zeros_like(idx)), 0)[0]
-    before = torch.where((start > 0)[:, None, None], cs[start - 1],
-                         torch.zeros_like(cs[:1]))
+    before = torch.where(start > 0, cs[:, start - 1],
+                         torch.zeros_like(cs[:, :1]))
     v = (cs - before) & 0xFFFFFFFF
-    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+    v = torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+    return v.T.reshape(pts.shape).contiguous()
+
+
+def fixup_elements(heads: torch.Tensor, lane_k: int = 64) -> int:
+    """The elements seg_scan's fix-up reads and writes a second time: in
+    each lane's range of lane_k elements, those before its first head (all
+    of a range without one)."""
+    n = heads.shape[0]
+    m = -(-n // lane_k)
+    h = torch.ones(m * lane_k, dtype=torch.bool, device=heads.device)
+    h[:n] = heads.bool()
+    h[0] = True
+    h = h.reshape(m, lane_k)
+    first = torch.where(h.any(1), h.int().argmax(1), lane_k)
+    return int(first.sum())
 
 
 def _local_heads(heads: torch.Tensor) -> torch.Tensor:
@@ -103,14 +134,28 @@ def _local_heads(heads: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def plain_stage(stage: str, pts: torch.Tensor, heads: torch.Tensor):
-    """(out, aux) of the stage: copy -> (pts, per-thread head flags);
-    local_agg -> (the local pass, the scanned aggregates); the rest ->
-    (out, None).  The scans run ec.plain_seg_scan with the kernels' block
-    size, which adds in the kernels' order, so results are equal bit for
-    bit."""
+def chunk_heads(heads: torch.Tensor, tpc: int) -> torch.Tensor:
+    """The heads in each chunk of tpc tiles, position 0 counted: (chunks,)
+    int64."""
+    h = heads.bool().clone()
+    h[0] = True
+    per = tpc * TILE
+    c = -(-h.shape[0] // per)
+    pad = torch.zeros(c * per, dtype=torch.int64, device=h.device)
+    pad[:h.shape[0]] = h.long()
+    return pad.reshape(c, per).sum(1)
+
+
+def plain_stage(stage: str, pts: torch.Tensor, heads: torch.Tensor,
+                tpc: int = 1):
+    """(out, aux) of the stage: copy -> (pts, each chunk's head count, in
+    chunks of tpc tiles); local_agg -> (the local pass, the scanned
+    aggregates); the rest -> (out, None).  The three-pass scans run
+    ec.plain_seg_scan with the kernels' block size, which adds in the
+    kernels' order, and the wrapping add is associative and commutative
+    limb by limb, so results are equal bit for bit."""
     if stage == "copy":
-        return pts.clone(), _block_flags(heads).to(torch.uint8)
+        return pts.clone(), chunk_heads(heads, tpc)
     if stage == "structure":
         return _wrap_scan(pts, heads), None
     if stage == "full":
@@ -129,15 +174,14 @@ def plain_stage(stage: str, pts: torch.Tensor, heads: torch.Tensor):
 
 # --- the stages on the card ---------------------------------------------------------
 
-def _local(L, na, comb, x, heads, out, name):
-    """seg_scan.cu's local pass with the given combine (0 the complete
-    add, 1 the wrapping add); returns the per-thread aggregates and their
-    head flags."""
+def _local(L, na, x, heads, out, name):
+    """The three-pass scan's local pass; returns the per-thread aggregates
+    and their head flags."""
     n = x.shape[0]
     T = -(-n // K)
     agg = torch.empty((T, na, 8), dtype=torch.int32, device=x.device)
     flag = torch.empty((T,), dtype=torch.uint8, device=x.device)
-    build.check(L.zk_probe_scan_local(na, comb, build.ptr(x),
+    build.check(L.zk_probe_scan_local(na, build.ptr(x),
                                       build.ptr(heads), build.ptr(out),
                                       build.ptr(agg), build.ptr(flag), n, K,
                                       build.stream_ptr(x)), name)
@@ -145,16 +189,16 @@ def _local(L, na, comb, x, heads, out, name):
     return agg, flag
 
 
-def _scan(L, na, comb, x, heads, out, name, fix=True):
+def _scan(L, na, x, heads, out, name, fix=True):
     """The local pass, then the same scan of the aggregates and, if fix,
     the fix-up.  Returns the scanned aggregates."""
     n = x.shape[0]
-    agg, flag = _local(L, na, comb, x, heads, out, name)
+    agg, flag = _local(L, na, x, heads, out, name)
     if agg.shape[0] > 1:
-        _scan(L, na, comb, agg, flag, agg, name)
+        _scan(L, na, agg, flag, agg, name)
         if fix:
             build.check(L.zk_probe_scan_fixup(
-                na, comb, build.ptr(out), build.ptr(heads), build.ptr(agg),
+                na, build.ptr(out), build.ptr(heads), build.ptr(agg),
                 n, K, build.stream_ptr(x)), name)
             F.count_launch(name, n)
     return agg
@@ -172,32 +216,47 @@ def scan_stage(stage: str, pts: torch.Tensor, heads: torch.Tensor):
     na, n = pts.shape[1], pts.shape[0]
     name = f"scan_{stage}_{'g1' if na == 3 else 'g2'}"
     L = build.cuda_lib()
+    if stage in SINGLE_PASS:
+        return _single_pass(L, stage, na, pts, heads, name)
     out = torch.empty_like(pts)
-    if stage == "copy":
-        flag = torch.empty((-(-n // K),), dtype=torch.uint8,
-                           device=pts.device)
-        build.check(L.zk_probe_scan_copy(na, build.ptr(pts), build.ptr(heads),
-                                         build.ptr(out), build.ptr(flag), n,
-                                         K, build.stream_ptr(pts)), name)
-        F.count_launch(name, n)
-        return out, flag
     if stage == "local":
-        _local(L, na, 0, pts, heads, out, name)
+        _local(L, na, pts, heads, out, name)
         return out, None
-    if stage == "lookback_k32":
-        S = 1 + int(heads[1:].sum())
-        sums = torch.empty((S, na, 8), dtype=torch.int32, device=pts.device)
-        scratch = torch.empty(L.zk_probe_lookback_bytes(na, n),
-                              dtype=torch.uint8, device=pts.device)
-        build.check(L.zk_probe_lookback(na, build.ptr(pts), build.ptr(heads),
-                                        build.ptr(sums), build.ptr(scratch),
-                                        n, build.stream_ptr(pts)), name)
-        F.count_launch(name, n)
-        return sums, None
-    comb = 1 if stage == "structure" else 0
-    agg = _scan(L, na, comb, pts, heads, out, name,
-                fix=stage != "local_agg")
+    agg = _scan(L, na, pts, heads, out, name, fix=stage != "local_agg")
     return out, (agg if stage == "local_agg" else None)
+
+
+def copy_tpc(na: int, n: int) -> int:
+    """The tiles a chunk of the copy kernel over n points on this card."""
+    return int(build.cuda_lib().zk_probe_scan_tpc(na, n))
+
+
+def _single_pass(L, stage, na, pts, heads, name):
+    """One launch of a single-pass stage's kernel (csrc/probes_scan.cu)."""
+    n = pts.shape[0]
+    scratch = torch.empty(L.zk_probe_scan_bytes(SINGLE_PASS[stage], na, n),
+                          dtype=torch.uint8, device=pts.device)
+    if stage == "lookback_k32":
+        out = torch.empty((1 + int(heads[1:].sum()), na, 8),
+                          dtype=torch.int32, device=pts.device)
+    else:
+        out = torch.empty_like(pts)
+    fn = {"copy": L.zk_probe_scan_copy,
+          "structure": L.zk_probe_scan_structure,
+          "lookback_k32": L.zk_probe_lookback}[stage]
+    build.check(fn(na, build.ptr(pts), build.ptr(heads), build.ptr(out),
+                   build.ptr(scratch), n, build.stream_ptr(pts)), name)
+    F.count_launch(name, n)
+    if stage != "copy":
+        return out, None
+    tiles = -(-n // TILE)
+    return out, chunk_counts(scratch, -(-tiles // copy_tpc(na, n)))
+
+
+def chunk_counts(scratch: torch.Tensor, chunks: int) -> torch.Tensor:
+    """The copy kernel's head counts, (chunks,) int64: the scan's count
+    words, 8 bytes a chunk from byte 16 of the (uint8) scratch."""
+    return scratch[16:16 + 8 * chunks].view(torch.int64).clone()
 
 
 # --- inputs and the run ------------------------------------------------------------
@@ -273,8 +332,10 @@ def run(device=None, means=None, log=print):
     """Times every stage over a G1 and a G2 stream of the prove path's
     sizes (means: {curve: mean segment length}, SEGMENT_MEAN by default)
     and returns ``check``, which holds each stage against its plain version
-    on a prefix (and ``full`` against ops/ec.seg_scan on the whole stream)
-    and returns the rows."""
+    (copy on the whole stream, structure on its first CHECK_STRUCTURE_N
+    points, the others on their first CHECK_N; ``full`` and
+    ``lookback_k32`` against ops/ec.seg_scan and seg_sums on the whole
+    stream too) and returns the rows."""
     dev = resolve(device)
     means = means or SEGMENT_MEAN
     streams, times = {}, {}
@@ -282,11 +343,11 @@ def run(device=None, means=None, log=print):
         n = STREAMS[curve]
         pts, heads = streams[curve] = stream(curve, n, means[curve],
                                              21 + _na(curve), dev)
-        warm = min(n, 1 << 16)
+        # warmed up on the whole stream, so that the timed calls find
+        # their outputs' and scratch's blocks in the allocator's cache
         for st in STAGES:
             times[curve, st] = C.time_ms(
-                lambda: scan_stage(st, pts, heads), dev, reps=REPS,
-                warm=lambda: scan_stage(st, pts[:warm], heads[:warm]))
+                lambda: scan_stage(st, pts, heads), dev, reps=REPS)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -296,9 +357,8 @@ def run(device=None, means=None, log=print):
             na = _na(curve)
             n = STREAMS[curve]
             pts, heads = streams.pop(curve)
-            s = min(CHECK_N, n)
-            # the main path's scan on the card, by affine value: it adds in
-            # another order than the three passes
+            # the main path's scans on the card, by affine value: they add
+            # in another order than the three passes
             full_eq = (_same_points(scan_stage("full", pts, heads)[0],
                                     ec.seg_scan(pts, heads))
                        if dev.type == "cuda" else None)
@@ -307,42 +367,64 @@ def run(device=None, means=None, log=print):
                        if dev.type == "cuda" else None)
             t_full = times[curve, "full"]
             for st in STAGES:
-                got = scan_stage(st, pts[:s], heads[:s])
-                p, plain_ms = C.timed(lambda: plain_stage(st, pts[:s],
-                                                          heads[:s]), dev)
-                if st == "lookback_k32":     # another order of adds
-                    err = max(C.max_abs_err(a, b) for a, b in zip(
-                        ec.canonical(got[0]), ec.canonical(p[0])))
-                else:
-                    err = max(C.max_abs_err(a, b) for a, b in zip(got, p)
-                              if a is not None)
-                if st == "full" and full_eq is False:
-                    err = max(err, 1)
-                adds = stage_adds(st, heads)
-                name = f"scan_{st}_{curve}"
-                ms = times[curve, st]
-                extra = {"full_equals_main_kernel": full_eq}
-                byts = 2 * na * 32 * n + n
-                if st == "lookback_k32":
-                    S = n - adds
-                    byts = na * 32 * (n + S) + n
-                    extra = {"equals_seg_sums": sums_eq,
-                             "source": SOURCES[st],
-                             "ptxas": next(iter(C.kernel_resources(
-                                 f"17k_{st}_{curve}").values()), None)}
-                r = C.row(name, REPLACES[st], n, ms, plain_ms, s, byts,
-                          adds * MONTS_PER_ADD[na] * C.MULS_PER_MONT
-                          / C.INT32_OPS_PER_S, err, adds=adds,
-                          segment_mean=means[curve],
-                          heads=int(heads.sum()),
-                          share_of_full=round(ms / t_full, 4),
-                          device=dev.type, **extra)
-                log(f"probe {name}: {ms:.3f} ms "
-                    f"({r['share_of_full']:.3f} of full), {adds} adds, "
-                    f"err {err}")
-                rows.append(r)
+                rows.append(_check_row(st, curve, pts, heads, times[curve, st],
+                                       t_full, means[curve], full_eq, sums_eq,
+                                       dev, log))
             del pts, heads
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         return rows
     return check
+
+
+def _check_row(st, curve, pts, heads, ms, t_full, mean, full_eq, sums_eq,
+               dev, log):
+    """Stage st held against its plain version (copy on the whole stream,
+    the others on a prefix) and its row."""
+    na, n = _na(curve), pts.shape[0]
+    s = {"copy": n, "structure": min(CHECK_STRUCTURE_N, n)}.get(
+        st, min(CHECK_N, n))
+    got = scan_stage(st, pts[:s], heads[:s])
+    tpc = copy_tpc(na, s) if st == "copy" and dev.type == "cuda" else 1
+    p, plain_ms = C.timed(lambda: plain_stage(st, pts[:s], heads[:s], tpc),
+                          dev)
+    if st == "lookback_k32":     # another order of adds
+        err = max(C.max_abs_err(a, b) for a, b in zip(
+            ec.canonical(got[0]), ec.canonical(p[0])))
+    else:
+        err = max(C.max_abs_err(a, b) for a, b in zip(got, p)
+                  if a is not None)
+    del got, p
+    if st == "full" and full_eq is False:
+        err = max(err, 1)
+    adds = stage_adds(st, heads)
+    name = f"scan_{st}_{curve}"
+    extra = {"full_equals_main_kernel": full_eq}
+    byts = 2 * na * 32 * n + n
+    library_ms = None
+    if st in SINGLE_PASS:
+        kernel = f"k_{st}_{curve}"
+        extra = {"source": SOURCE,
+                 "ptxas": next(iter(C.kernel_resources(
+                     f"{len(kernel)}{kernel}").values()), None)}
+    if st == "structure":
+        # the bytes it moves: its fix-up's second pass included
+        f = fixup_elements(heads)
+        extra["fixup_elements"] = f
+        extra["moved_bytes_ms"] = round(
+            (byts + 2 * na * 32 * f) / C.HBM_BYTES_PER_S * 1e3, 4)
+    if st == "copy":
+        extra["tiles_per_chunk"] = tpc
+        # one PyTorch call that moves the same points (no head count)
+        library_ms = C.time_ms(lambda: pts.clone(), dev, reps=REPS)
+    if st == "lookback_k32":
+        byts = na * 32 * (2 * n - adds) + n
+        extra["equals_seg_sums"] = sums_eq
+    r = C.row(name, REPLACES[st], n, ms, plain_ms, s, byts,
+              adds * MONTS_PER_ADD[na] * C.MULS_PER_MONT
+              / C.INT32_OPS_PER_S, err, library_ms=library_ms, adds=adds,
+              segment_mean=mean, heads=int(heads.sum()),
+              share_of_full=round(ms / t_full, 4), device=dev.type, **extra)
+    log(f"probe {name}: {ms:.3f} ms "
+        f"({r['share_of_full']:.3f} of full), {adds} adds, err {err}")
+    return r

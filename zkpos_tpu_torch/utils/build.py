@@ -133,9 +133,10 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_probe_product": [I, V, V, V, LL, V],
                 "zk_probe_latency": [V, V, V, I, I, V],
                 "zk_probe_split": [I, V, V, V, LL, LL, V, I, V],
-                "zk_probe_scan_copy": [I, V, V, V, V, LL, I, V],
-                "zk_probe_scan_local": [I, I, V, V, V, V, V, LL, I, V],
-                "zk_probe_scan_fixup": [I, I, V, V, V, LL, I, V],
+                "zk_probe_scan_copy": [I, V, V, V, V, LL, V],
+                "zk_probe_scan_structure": [I, V, V, V, V, LL, V],
+                "zk_probe_scan_local": [I, V, V, V, V, V, LL, I, V],
+                "zk_probe_scan_fixup": [I, V, V, V, LL, I, V],
                 "zk_probe_lookback": [I, V, V, V, V, LL, V],
                 "zk_probe_dot": [I, I, V, V, V, LL, V],
             }
@@ -147,8 +148,10 @@ def cuda_lib() -> ctypes.CDLL:
             L.zk_csr_chunks.restype = LL
             L.zk_seg_scratch_bytes.argtypes = [I, I, LL]
             L.zk_seg_scratch_bytes.restype = LL
-            L.zk_probe_lookback_bytes.argtypes = [I, LL]
-            L.zk_probe_lookback_bytes.restype = LL
+            L.zk_probe_scan_bytes.argtypes = [I, I, LL]
+            L.zk_probe_scan_bytes.restype = LL
+            L.zk_probe_scan_tpc.argtypes = [I, LL]
+            L.zk_probe_scan_tpc.restype = LL
             _cuda_lib = L
     return _cuda_lib
 
