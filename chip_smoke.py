@@ -77,12 +77,15 @@ Phases, in order; any failure exits non-zero:
      against the per-block kernel) and on one chain, with the products on
      a chain's critical path;
  11. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
-     probes in scripts/): instruction rates, the digit convolutions, the
+     probes in scripts/): instruction rates, the digit convolutions
+     (beside one conv1d call a round, their library yardstick), the
      Montgomery product's stages, the sparse Poseidon(2) ablations over
      the tree path's first level in the tree kernel's layout (their base
      beside that kernel), the seg-scan stages (the single pass's byte
-     floor and structure, the three-pass yardstick) over streams of the
-     prove path's sizes and mean segment lengths (measured in phase 5),
+     floor and structure; seg_scan's own body cut into its lanes' passes,
+     those with its aggregates and look-backs, and the whole; the
+     three-pass yardstick) over streams of the prove path's sizes and mean
+     segment lengths (measured in phase 5),
      and the weights-first product on the FP32 pipes and the TF32 tensor
      cores beside torch.matmul; one JSON line per probe, every variant
      held against its plain version (exactly, or within its stated
@@ -212,9 +215,12 @@ def fail(msg):
 
 # --- helpers on the card -----------------------------------------------------
 
-def cuda_ms(fn, reps=3):
+def cuda_ms(fn, reps=3, warm=True):
+    """Mean ms of reps calls of fn by CUDA events, after one call unless
+    warm is False (a kernel that already ran on a slice of the input)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
@@ -1814,7 +1820,8 @@ def phase_poseidon_kernels(tree, inputs):
     # run past n), timed on the whole level
     err = max(max_abs_err(S.hash2_mont_sparse(a, b), p),
               max_abs_err(S.hash2_mont_sparse(a[:4097], b[:4097]), p[:4097]))
-    ms = cuda_ms(lambda: S.hash2_mont_sparse(a_all, b_all), reps=2)
+    ms = cuda_ms(lambda: S.hash2_mont_sparse(a_all, b_all), reps=1,
+                 warm=False)
     r = make_row("poseidon_sparse3", err, ms, n, plain_ms, s, 3 * 32 * n,
                  sparse_monts(3) * MULS_PER_MONT * n)
     r["per_thread"] = 1          # k_sparse3: one hash a thread
@@ -1824,7 +1831,7 @@ def phase_poseidon_kernels(tree, inputs):
     st = torch.stack([torch.zeros_like(a_all), a_all, b_all], 1)
     k = P.permute(st[:s].contiguous())
     p, plain_ms = timed(lambda: P.plain_permute(st[:s]))
-    ms = cuda_ms(lambda: P.permute(st), reps=1)
+    ms = cuda_ms(lambda: P.permute(st), reps=1, warm=False)
     rows.append(make_row("poseidon_plain_t3", max_abs_err(k, p), ms, n,
                          plain_ms, s, 4 * 32 * n,
                          poseidon_monts(3) * MULS_PER_MONT * n))
@@ -1864,9 +1871,9 @@ def phase_poseidon_kernels(tree, inputs):
     cmp = {"accounts": x.shape[0], "inputs": x.shape[1],
            "widths": chain_widths(x.shape[1]),
            "hash_chain_mont_ms": round(cuda_ms(
-               lambda: P.hash_chain_mont(x), reps=3), 4),
-           "chain_mont_ms": round(cuda_ms(lambda: P.chain_mont(x), reps=3),
-                                  4)}
+               lambda: P.hash_chain_mont(x), reps=1, warm=False), 4),
+           "chain_mont_ms": round(cuda_ms(lambda: P.chain_mont(x), reps=1,
+                                          warm=False), 4)}
     log(json.dumps({"leaf_chain_vs_chain_mont": cmp}))
     rows[-1]["leaf_chain_vs_chain_mont"] = cmp
     # the chain at its largest launch (the service path's batched CEX
@@ -1879,9 +1886,9 @@ def phase_poseidon_kernels(tree, inputs):
     head = x[:, :113].contiguous()
     p, plain_ms = timed(lambda: P.plain_chain_mont(head))
     err = max(err, max_abs_err(P.chain_mont(head), p))
-    ms = cuda_ms(lambda: P.chain_mont(x), reps=2)
+    ms = cuda_ms(lambda: P.chain_mont(x), reps=1, warm=False)
     one = x[:1].contiguous()
-    ms_one = cuda_ms(lambda: P.chain_mont(one), reps=2)
+    ms_one = cuda_ms(lambda: P.chain_mont(one), reps=1)
     # products on one chain's critical path: counted from the schedule
     # (sparse_critical), not measured; the time a product is the measured
     # one-chain time over that count
@@ -1903,7 +1910,10 @@ def phase_poseidon_kernels(tree, inputs):
 
 ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_rel_err", "tol", "ms", "n", "plain_ms", "plain_n",
-            "bound_ms", "bound_by", "library_ms", "ptxas")
+            "bound_ms", "bound_by", "library_ms", "ptxas", "counted_as",
+            "adds", "bytes_ms", "ops_ms", "fixup_elements",
+            "design_adds", "design_ops_ms", "tiles_per_chunk",
+            "check_tiles_per_chunk")
 
 
 def probe_row(r):
@@ -1920,7 +1930,8 @@ def probe_row(r):
             r["max_rel_err"] <= tol):
         fail(f"{r['name']} disagrees with its plain version")
     for k in ("full_equals_main_kernel", "cios_equals_reduce_of_product",
-              "equals_seg_sums"):
+              "equals_seg_sums", "carries_equal_main_kernel",
+              "elements_equal_local", "check_spans_chunks"):
         if r.get(k) is False:
             fail(f"{r['name']}: {k} is false")
     return {k: r[k] for k in ROW_KEYS if k in r}
@@ -2030,8 +2041,8 @@ def main():
     PATH_KERNELS["probes"] = kernel_names()
     probe_rows, launches["probes"], wide = phase_probes(smi, means)
     need(launches["probes"], "probes")
-    rebound(rows, wide)
     rows += probe_rows
+    rebound(rows, wide)
     # the chain's time a critical-path product beside one product's latency
     # on a lone warp (probes/latency.py)
     from zkpos_tpu_torch.probes import latency
@@ -2042,16 +2053,31 @@ def main():
     cp["latency_share"] = round(cp["latency_probe_ns"] / cp["ns_per_mont"], 4)
     log(json.dumps({"chain_critical_path": cp}))
     # the single-pass segment sums on the prove's streams beside the
-    # three-pass scan they replaced (the probes' stage 8) on streams of the
-    # same sizes
-    cmp = {}
+    # three-pass scan they replaced on streams of the same sizes; seg_scan's
+    # stages on the probes' streams, and what its fix-up costs an element
+    cmp, split = {}, {}
     for curve in ("g1", "g2"):
         k = next(r for r in rows if r["name"] == f"seg_sums_{curve}")
-        f = next(r for r in rows if r["name"] == f"scan_full_{curve}")
+        st = {s_: next(r for r in rows if r["name"] == f"scan_{s_}_{curve}")
+              for s_ in ("local", "local_agg", "full", "three_pass")}
+        f = st["three_pass"]
         cmp[curve] = {"seg_sums_ms": k["ms"], "n": k["n"],
                       "three_pass_ms": f["ms"], "three_pass_n": f["n"],
                       "three_pass_over_seg_sums": round(f["ms"] / k["ms"], 3)}
+        fix_ms = st["full"]["ms"] - st["local_agg"]["ms"]
+        split[curve] = {
+            **{f"{s_}_ms": r["ms"] for s_, r in st.items()},
+            **{f"{s_}_adds": r.get("design_adds", r.get("adds"))
+               for s_, r in st.items()},
+            "fixup_ms": round(fix_ms, 4),
+            "fixup_share": round(fix_ms / st["full"]["ms"], 4),
+            "fixup_elements": st["full"]["fixup_elements"],
+            "fixup_ns_per_element": round(
+                fix_ms * 1e6 / st["full"]["fixup_elements"], 4),
+            "pass_ns_per_add": round(
+                st["local"]["ms"] * 1e6 / st["local"]["adds"], 4)}
     log(json.dumps({"seg_sums_vs_three_pass": cmp}))
+    log(json.dumps({"seg_scan_stages": split}))
     # the ablations' base beside the tree's kernel that it takes apart, at
     # the same n (the tree path's first level)
     k = next(r for r in rows if r["name"] == "poseidon_sparse3")
@@ -2062,8 +2088,12 @@ def main():
         "split_full_over_poseidon_sparse3": round(f["ms"] / k["ms"], 4)}}))
     log(f"probes path done at {time.time() - t_all:.1f} s")
     for r in rows:
-        by_path = {p_: n for p_, c in launches.items()
-                   if (n := c.get(r["name"], 0))}
+        # a probe row that times another kernel (the scan's full stage is
+        # seg_scan's own) counts that kernel's launches on the probes path
+        key = r.get("counted_as", r["name"])
+        paths = {"probes": launches["probes"]} if "counted_as" in r \
+            else launches
+        by_path = {p_: n for p_, c in paths.items() if (n := c.get(key, 0))}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     launched = {k for c in launches.values() for k, n in c.items() if n}

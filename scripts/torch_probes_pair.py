@@ -12,11 +12,14 @@ that .gitignore lists), then this checkout twice, then the parent again.
      G1 and G2 streams of the prove path's sizes and segment means (the
      probes' streams), each the mean of REPS launches by CUDA events after a
      warm-up, with its kernel's ptxas figures, a digest of its SASS
-     (cuobjdump) and a digest of its output's affine values.
+     (cuobjdump) and a digest of its output's affine values; and a digest
+     of each weights-first chain's output (probe_dot, both routes, both
+     kinds, on the probe's inputs).
 3. Prints one JSON line a turn, then one line that pairs the two checkouts
    (the probes path's seconds and each scan's ms, by turn; whether the
-   scans' SASS and values are the same), then the card's name and power
-   limit.  The probes' own lines go to FILE (default probes_pair.jsonl
+   scans' SASS and values are the same; whether each chain's output is
+   the same bit for bit, which is reported and not required), then the
+   card's name and power limit.  The probes' own lines go to FILE (default probes_pair.jsonl
    in the working directory).
 
 Exits 2 without a card, 1 if a probe of either checkout disagrees with its
@@ -95,6 +98,13 @@ def scans() -> dict:
                          "value": h.hexdigest()[:16]}
         del pts, heads
         torch.cuda.empty_cache()
+    from zkpos_tpu_torch.probes import probe_dot as pd
+    w, x = pd.inputs(pd.N, 0, "cuda")
+    for kind in pd.KINDS:
+        for route in pd.ROUTES:
+            y = pd.chain(kind, route, w, x)
+            out[f"dot_{kind}_{route}"] = {"value": hashlib.sha256(
+                y.cpu().numpy().tobytes()).hexdigest()[:16]}
     return out
 
 
@@ -177,6 +187,10 @@ def main(argv=None) -> int:
                    "ptxas": {t["tree"]: g.get("ptxas")
                              for g, t in zip(got, turns)}}
         ok = ok and pair[k]["same_sass"] and pair[k]["same_value"]
+    for k in (f"dot_{kind}_{route}" for kind in ("dot", "mix")
+              for route in ("ffma", "tf32")):
+        pair[k] = {"same_value": len({t["scans"].get(k, {}).get("value")
+                                      for t in turns}) == 1}
     print(json.dumps({"pair": pair}), flush=True)
     sys.path.insert(0, HERE)
     from zkpos_tpu_torch.probes.common import smi

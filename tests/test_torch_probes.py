@@ -46,6 +46,7 @@ from zkpos_tpu_torch.ops import ec
 from zkpos_tpu_torch.ops import field as F
 from zkpos_tpu_torch import probes
 from zkpos_tpu_torch.probes import debug_product as pprod
+from zkpos_tpu_torch.probes import dot_variants as pdv
 from zkpos_tpu_torch.probes import latency as platency
 from zkpos_tpu_torch.probes import probe_conv as pconv
 from zkpos_tpu_torch.probes import probe_dot as pdot
@@ -94,6 +95,16 @@ def test_conv_rounds_match_tpu_kernel_body(tpu_conv, form):
              + jnp.pad(c[tpu_conv.ND:], ((0, 1), (0, 0))) * 1e-7 + jb)
     np.testing.assert_allclose(pconv.plain_rounds(form, a, b).numpy(),
                                np.asarray(x), rtol=1e-6)
+
+
+@pytest.mark.parametrize("form", pconv.FORMS)
+def test_conv_library_matches_plain(form):
+    """The library yardstick (each round's convolution one conv1d over
+    the columns as groups) computes the probe's rounds and fold."""
+    a, b = pconv.inputs(48, 5, "cpu")
+    err = C.max_rel_err(pconv.library_rounds(form, a, b),
+                        pconv.plain_rounds(form, a, b))
+    assert err <= pconv.TOL
 
 
 # the TPU kernels' loop bodies, restated (closures inside the scripts' main)
@@ -218,6 +229,47 @@ def test_fixup_elements():
     h = torch.zeros(264, dtype=torch.uint8)
     h[[5, 70, 130]] = 1
     assert pscan.fixup_elements(h) == 0 + 6 + 2 + 64 + 8
+
+
+@pytest.mark.parametrize("tpc", [1, 2])
+@pytest.mark.parametrize("at,want", [
+    ([5, 13], {"local": 10, "local_agg": 11, "full": 17, "three_pass": 13}),
+    ([], {"local": 12, "local_agg": 16, "full": 28, "three_pass": 15})])
+def test_stage_adds(tpc, at, want):
+    """The single pass's adds at 2 lanes x 4 elements a tile (lanes 0-3,
+    4-7, 8-11, 12-15), in chunks of one and of two tiles.  Heads at 0, 5
+    and 13: local 3 + 2 + 3 + 2 (no head, no lane's first element); no
+    scan round adds (lanes 0, 1 and 3 hold heads); a tile a chunk, the
+    second chunk starts inside a segment and its second lane waits for the
+    prefix, two tiles a chunk, lane 12-15's carry joins the running prefix
+    (1 add either way); full adds the 0 + 1 + 4 + 1 elements before each
+    lane's first head.  A head at 0 only: local 12; one scan round add a
+    tile; a tile a chunk, the second chunk's inclusive prefix and its
+    second lane's carry, two tiles a chunk, lane 12-15's carry and the
+    prefix's extension by the second tile (2 adds either way); full 12
+    elements more."""
+    h = torch.zeros(16, dtype=torch.uint8)
+    h[at] = 1
+    got = {st: pscan.stage_adds(st, h, tpc, lane_k=4, lanes=2)
+           for st in want}
+    assert got == want
+    assert pscan.stage_adds("copy", h, tpc) == 0
+    assert pscan.fixup_elements(h, 4) == want["full"] - want["local_agg"]
+
+
+@pytest.mark.parametrize("mean", [3.0, 40.0])
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_lane_carries_equal_plain_carries(curve, mean):
+    """The card check's carries, a scan over the lanes of the lanes'
+    passes, equal plain_stage's, the full scan at the element before each
+    open lane, by affine value: on short segments and on segments longer
+    than many lanes (lanes of 4, a short last lane)."""
+    pts, heads = pscan.stream(curve, 203, mean, 7, "cpu")
+    local, carries = pscan.plain_stage("local_agg", pts, heads, lane_k=4)
+    got = pscan.lane_carries(local, heads, 4)
+    assert got.shape == carries.shape
+    assert pscan._same_points(got, carries)
+    assert bool(pscan.open_lanes(heads, 4).any())
 
 
 def test_full_scan_stage_matches_jax_hs():
@@ -379,6 +431,25 @@ def test_ec_variants_sources():
     with open(os.path.join(build.CSRC, "fp_ec.cuh")) as f, \
             open(os.path.join(out, "fp_ec.cuh")) as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("variant", sorted(pdv.VARIANTS))
+def test_dot_variants_sources(variant):
+    """The product variants script's copies of csrc: each substitution
+    made where the script says (so a change that moves the text fails
+    here, not on the card), every other file unchanged."""
+    from zkpos_tpu_torch.utils import build
+    subs = tuple(("probes.cu", o, n) for o, n in pdv.VARIANTS[variant])
+    out = pdv.variant_sources("dot_variants", "test_" + variant, build.CSRC,
+                              subs)
+    with open(os.path.join(out, "probes.cu")) as g:
+        text = g.read()
+    for _, old, new in subs:
+        assert new in text and old not in text
+    for f in ("probes.cuh", "seg_scan.cuh"):
+        with open(os.path.join(build.CSRC, f)) as g, \
+                open(os.path.join(out, f)) as h:
+            assert g.read() == h.read()
 
 
 @pytest.mark.parametrize("variant", ["nosync", "block64", "smem"])

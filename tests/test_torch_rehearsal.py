@@ -39,9 +39,11 @@ from zkpos_tpu.crypto.poseidon_ref import permutation, poseidon
 from zkpos_tpu_torch.ops import ec as tec
 from zkpos_tpu_torch.ops import poseidon as tpos
 from zkpos_tpu_torch.ops import poseidon_sparse as tsparse
+from zkpos_tpu_torch.probes import common as C
 from zkpos_tpu_torch.probes import debug_product as pprod
 from zkpos_tpu_torch.probes import latency as platency
 from zkpos_tpu_torch.probes import probe_conv as pconv
+from zkpos_tpu_torch.probes import probe_dot as pdot
 from zkpos_tpu_torch.probes import probe_kernel_split as psplit
 from zkpos_tpu_torch.probes import probe_segscan as pscan
 from zkpos_tpu_torch.probes import rates as prates
@@ -81,6 +83,8 @@ def harness(tmp_path_factory):
     L.rh_probe_scan.argtypes = [I, I, V, V, V, LG, I]
     L.rh_probe_scan_copy.argtypes = [I, I, I, I, V, V, V, V, LG]
     L.rh_seg.argtypes = [I, I, I, I, I, I, I, V, V, V, LG]
+    L.rh_seg_stage.argtypes = [I, I, I, I, I, I, V, V, V, V, LG]
+    L.rh_probe_dot_slab.argtypes = [I, I, V, V]
     L.rh_fold_counts.argtypes = [V, I, V]
     L.rh_fold_points.argtypes = [V, V, V, I, V]
     L.rh_cc.argtypes = [I, V, V, V, V, V, V, LG]
@@ -515,22 +519,27 @@ def test_probe_split_variants(harness, mode):
 
 @pytest.mark.parametrize("curve,stage", [
     ("g1", "copy"), ("g1", "structure"), ("g1", "local"), ("g1", "full"),
-    ("g2", "copy"), ("g2", "structure"), ("g2", "full")])
+    ("g2", "copy"), ("g2", "structure"), ("g2", "full"),
+    ("g1", "local_agg"), ("g2", "local"), ("g2", "local_agg"),
+    ("g1", "three_pass"), ("g2", "three_pass")])
 def test_probe_scan_passes(harness, curve, stage):
-    """local and full: the three passes (two levels of K = 16 blocks);
-    copy and structure: the single pass's walk at SEG_LANES x SEG_K
-    elements a tile, in chunks of one and of two tiles, structure being
-    seg_scan.cuh with every add the wrapping add.  No head in 17..79: a
-    segment across blocks, tiles and chunks."""
+    """three_pass: the three passes (two levels of K = 16 blocks); the
+    others: the single pass's walk at SEG_LANES x SEG_K elements a tile, in
+    chunks of one and of two tiles -- structure being seg_scan.cuh with
+    every add the wrapping add, local / local_agg / full seg_scan.cuh's
+    stages (_check_stage).  No head in 17..79: a segment across blocks,
+    tiles and chunks."""
     n = 300 if curve == "g1" else 140
     pts, heads = pscan.stream(curve, n, 6.0, 41, "cpu")
     heads[17:80] = 0
-    if stage in ("local", "full"):
+    if stage == "three_pass":
         out = torch.empty_like(pts)
-        harness.rh_probe_scan(pts.shape[1], int(stage != "local"),
-                              pts.data_ptr(), heads.data_ptr(),
-                              out.data_ptr(), n, pscan.K)
+        harness.rh_probe_scan(pts.shape[1], 1, pts.data_ptr(),
+                              heads.data_ptr(), out.data_ptr(), n, pscan.K)
         assert torch.equal(out, pscan.plain_stage(stage, pts, heads)[0])
+        return
+    if stage in STAGE_PHASES:
+        _check_stage(harness, stage, pts, heads)
         return
     for tpc in (1, 2):
         out = torch.zeros_like(pts)
@@ -552,10 +561,25 @@ def test_probe_scan_passes(harness, curve, stage):
         assert pscan.chunk_counts(scratch, len(counts)).tolist() == counts
 
 
+@pytest.mark.parametrize("tc", [4, 8])
+@pytest.mark.parametrize("kind", ["dot", "mix"])
+def test_probe_dot_ffma_slab(harness, kind, tc):
+    """The FFMA route's register tile (probes.cuh dot_tile, 8 rows x tc
+    columns a thread, W transposed) over one slab's chain against the
+    plain chain, within the route's tolerance."""
+    w, x = pdot.inputs(64, 19, "cpu")
+    out = x.clone()
+    harness.rh_probe_dot_slab(int(kind == "mix"), tc, w.data_ptr(),
+                              out.data_ptr())
+    err = C.max_rel_err(out, pdot.plain_chain(kind, w, x))
+    assert err <= pdot.TOL[kind, "ffma"]
+
+
 # --- the single-pass scan (csrc/seg_scan.cuh) -------------------------------
 
 SEG_LANES, SEG_K = 3, 4                    # a tile of 12 elements here
 SEG_TILE = SEG_LANES * SEG_K
+STAGE_PHASES = {**pscan.PHASES, "full": 2}      # scan::Phase
 SEG_STREAMS = {                            # kind: (n, head positions)
     "one_segment": (61, []),
     "all_heads": (30, "all"),
@@ -594,6 +618,45 @@ def test_seg_scan_tiles(harness, curve, kind):
                                   tpc, 2, pts.data_ptr(), heads.data_ptr(),
                                   out.data_ptr(), n) == 0
             assert tec.to_affine(out) == tec.to_affine(want)
+
+
+def _check_stage(harness, stage, pts, heads):
+    """A stage of seg_scan.cuh (rh_seg_stage) in chunks of one and of two
+    tiles of SEG_LANES x SEG_K: local bit for bit against
+    plain_stage("local") (the plain scan with every lane start a head),
+    local_agg's elements the same and its carries by affine value against
+    the plain full scan at the element before each open lane (zero rows
+    elsewhere), full by affine value against the plain full scan."""
+    n, na = pts.shape[0], pts.shape[1]
+    if stage == "full":
+        want = tec.to_affine(tec.plain_seg_scan(pts, heads))
+    else:
+        local, carries = pscan.plain_stage(stage, pts, heads, lane_k=SEG_K)
+    for tpc in (1, 2):
+        out = torch.zeros_like(pts)
+        lanes = -(-n // SEG_TILE) * SEG_LANES
+        carry = torch.zeros((lanes, na, 8), dtype=torch.int32)
+        assert harness.rh_seg_stage(na, STAGE_PHASES[stage], SEG_LANES,
+                                    SEG_K, tpc, 2, pts.data_ptr(),
+                                    heads.data_ptr(), out.data_ptr(),
+                                    carry.data_ptr(), n) == 0
+        if stage == "full":
+            assert tec.to_affine(out) == want
+            continue
+        assert torch.equal(out, local)
+        if stage == "local_agg":
+            m = carries.shape[0]
+            assert not carry[m:].any()
+            assert tec.to_affine(carry[:m]) == tec.to_affine(carries)
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+@pytest.mark.parametrize("kind", list(SEG_STREAMS))
+@pytest.mark.parametrize("stage", list(STAGE_PHASES))
+def test_seg_scan_stages(harness, curve, kind, stage):
+    """seg_scan.cuh's stages (the probes' local, local_agg and full) on
+    the streams that stress its tiles."""
+    _check_stage(harness, stage, *_seg_stream(curve, kind))
 
 
 @pytest.mark.parametrize("words,excl,done", [

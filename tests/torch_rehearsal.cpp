@@ -201,11 +201,15 @@ void sparse3_rows(const uint32_t* a, const uint32_t* b, const uint32_t* K,
 // point; last, the point look-backs, even chunks before odd ones, so that
 // they meet aggregates, prefixes with a head and inclusive prefixes.  Add
 // is every add of the scan (the probes' structure runs it on
-// probe::WrapAdd).
+// probe::WrapAdd).  phase (seg_scan only) cuts the body off as
+// scan::Phase does on the card: kPhaseLocal after the lanes' passes, each
+// lane's first element a head; kPhaseAgg before the carries are added to
+// the elements, each lane's carry-in into `carry` (lane l of tile t at
+// t lanes + l) instead.
 template <class E, class Add = scan::InlineAdd>
 void seg_host(int sums, int lanes, int K, int tpc, int window,
               const uint32_t* in, const uint8_t* heads, uint32_t* out,
-              long n) {
+              long n, int phase = 2, uint32_t* carry = nullptr) {
   using namespace scan;
   const int W = Layout<E>::NA * 8;
   const Add add;
@@ -266,7 +270,8 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
         };
         for (long i = s; i < e; ++i) {
           const Point<E> p = load_point<E>(in + W * i);
-          if (i == s) run_first(r, p, head(i), seen);
+          if (i == s)
+            run_first(r, p, phase == kPhaseLocal || head(i), seen);
           else run_take(r, p, head(i), emit, add);
           if (!sums) store_point(out + W * i, r.acc);
           if (!hd && head(i) && i < first_head[c]) first_head[c] = i;
@@ -276,6 +281,7 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
         buf[0][l] = r.acc;
         fb[0][l] = (s >= n || !r.open) ? 1u : 0u;
       }
+      if (phase == kPhaseLocal) continue;
       int cur = 0;
       for (int d = 1; d < lanes; d <<= 1, cur ^= 1)
         for (int l = 0; l < lanes; ++l)
@@ -295,6 +301,8 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
           if (!done) deferred[c] = base[l] - 1;
         } else if (has && !done) {
           waiting[(t0 - c0) / tile * lanes + l + c * tpc * lanes] = cy;
+        } else if (has && phase == kPhaseAgg) {
+          store_point(carry + W * (t0 / tile * lanes + l), cy);
         } else if (has) {
           for (uint32_t j = 0; j < runs[l].pre; ++j)
             add_to(out + W * (s + j), cy);
@@ -306,6 +314,7 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
     chunk_head[c] = hd;
     pst[c] = hd ? kPtHead : kPtAgg;
   }
+  if (phase == kPhaseLocal) return;
   for (int parity = 0; parity < 2; ++parity)
     for (long c = parity; c < C; c += 2) {
       if (head(c * chunk)) continue;
@@ -329,6 +338,10 @@ void seg_host(int sums, int lanes, int K, int tpc, int window,
             if (s < e && (t0 != c * chunk || l != 0))
               add(cx, x, waiting[(t0 - c * chunk) / tile * lanes + l +
                                  c * tpc * lanes]);
+            if (phase == kPhaseAgg) {
+              if (s < e) store_point(carry + W * (t0 / tile * lanes + l), cx);
+              continue;
+            }
             for (long i = s; i < e; ++i) add_to(out + W * i, cx);
           }
     }
@@ -385,6 +398,36 @@ int csr_host(int lanes, int K, const csr::Terms& m, long long nrows,
 }
 
 }  // namespace
+
+// The FFMA route of the weights-first product over one slab of 64
+// columns (X: 64 x 64, row-major, in place): k_dot_ffma's tiles of 8 x TC
+// (probe::dot_tile; warp w of 16 / TC, lane (g, q) at rows 4g, columns
+// 4 TC w + 4q) in turn, each chain step's output written back once every
+// tile has read its operands; mix: 0 k_dot, 1 k_mix
+template <int TC>
+void dot_slab(int mix, const float* W, float* X) {
+  const int F = probe::kDotF;
+  std::vector<float> Wt(F * F), nx(F * F);
+  for (int r = 0; r < F; ++r)
+    for (int k = 0; k < F; ++k) Wt[k * F + r] = W[r * F + k];
+  for (int step = 0; step < (mix ? 4 : 8); ++step) {
+    for (int w = 0; w < 16 / TC; ++w)
+      for (int lane = 0; lane < 32; ++lane) {
+        const int r0 = 4 * (lane % 8), c0 = 4 * TC * w + 4 * (lane / 8);
+        float acc[8][TC], xo[8][TC];
+        probe::dot_tile<TC>(acc, Wt.data(), F, X, F, r0, c0);
+        for (int i = 0; i < 8; ++i)
+          for (int j = 0; j < TC; ++j)
+            xo[i][j] = X[probe::dot_row(r0, i) * F + probe::dot_col(c0, j)];
+        if (mix) probe::dot_step_tail<true, TC>(acc, xo);
+        else probe::dot_step_tail<false, TC>(acc, xo);
+        for (int i = 0; i < 8; ++i)
+          for (int j = 0; j < TC; ++j)
+            nx[probe::dot_row(r0, i) * F + probe::dot_col(c0, j)] = acc[i][j];
+      }
+    for (int e = 0; e < F * F; ++e) X[e] = nx[e];
+  }
+}
 
 extern "C" {
 
@@ -666,6 +709,31 @@ int rh_seg(int na, int sums, int wrap, int lanes, int K, int tpc, int window,
     return 1;
   }
   return 0;
+}
+
+// A stage of seg_scan.cuh on the host (seg_host): phase 0 local, 1
+// local_agg (carry: a point a lane of the stream's tiles), 2 full;
+// returns 1 if a look-back found nothing published before it
+int rh_seg_stage(int na, int phase, int lanes, int K, int tpc, int window,
+                 const uint32_t* in, const uint8_t* heads, uint32_t* out,
+                 uint32_t* carry, long n) {
+  try {
+    if (na == 3)
+      seg_host<Fp1>(0, lanes, K, tpc, window, in, heads, out, n, phase,
+                    carry);
+    else
+      seg_host<Fp2>(0, lanes, K, tpc, window, in, heads, out, n, phase,
+                    carry);
+  } catch (int) {
+    return 1;
+  }
+  return 0;
+}
+
+// dot_slab at a tile of 8 x tc
+void rh_probe_dot_slab(int mix, int tc, const float* W, float* X) {
+  if (tc == 8) dot_slab<8>(mix, W, X);
+  else dot_slab<4>(mix, W, X);
 }
 
 // scan::fold_counts over m words, nearest first; returns whether it

@@ -2,7 +2,8 @@
 // in scripts/ (probe_conv.py, debug_f32p.py, micro_probe2.py,
 // micro_probe3.py, probe_segscan.py), driven by zkpos_tpu_torch/probes/
 // (the Poseidon ablations of probe_kernel_split.py are in
-// probes_split.cu, the single-pass scan's stages in probes_scan.cu).  Each TPU probe answered a design question
+// probes_split.cu, the single-pass scan's probes in probes_scan.cu and
+// probes_stages*.cu).  Each TPU probe answered a design question
 // about one kernel on the TPU; these ask the same of this card:
 //
 //   * k_rate: the issue rate of one instruction class, from one chain of
@@ -15,12 +16,15 @@
 //   * k_latency: the fused product's latency, dependent products on one
 //     warp;
 //   * k_scan_local / k_scan_fixup: the port's first scan, three passes
-//     (one thread a block of K elements), the yardstick of the single-pass scan of
-//     seg_scan.cu; the single-pass scan's own floor and structure are in
-//     probes_scan.cu;
+//     (one thread a block of K elements), the yardstick (three_pass) of
+//     the single-pass scan of seg_scan.cu; the single-pass scan's own
+//     floor and structure are in probes_scan.cu, its stages in
+//     probes_stages.cu;
 //   * k_dot_ffma / k_dot_tf32: the weights-first product W(64,64) @ X(64,N)
-//     chained in shared memory, on the FP32 pipes and on the TF32 tensor
-//     cores (mma.sync m16n8k8), as the TPU's probe ran it on its MXU.
+//     chained in shared memory, on the FP32 pipes (a register tile of 8 x
+//     4 outputs a thread) and on the TF32 tensor cores (mma.sync m16n8k8,
+//     W's fragments in registers), as the TPU's probe ran it on its MXU:
+//     persistent blocks, slabs of X streamed through a cp.async ring.
 //
 // None of these is on a main path.  Each is the plain form of its
 // question, in the layout of the main-path kernel it asks about where one
@@ -28,6 +32,7 @@
 #include <cuda_runtime.h>
 
 #include "probes.cuh"
+#include "seg_scan.cuh"
 
 using namespace ff;
 
@@ -199,75 +204,118 @@ int scan_fixup(void* out, const void* heads, const void* carry, long long n,
 // --- weights-first product: Y = W(64,64) @ X(64,N), chained ------------------
 //
 // X and Y are (64, N) row-major: feature k of column c at k * N + c, the
-// layout of the TPU probe (batch on the lanes).  A block owns a slab of
-// kCols columns; W and the slab stay in shared memory through the whole
-// chain, as the TPU kept them in VMEM.  MIX = false: 8 x (x = W x * 1e-2)
-// (micro_probe3.py:117); MIX = true: 4 x (y = W x; x = x 1e-2 + y 1e-3;
-// 16 x (x = x 0.999 + 1)) (micro_probe3.py:146).
+// layout of the TPU probe (batch on the lanes).  MIX = false: 8 x (x = W x
+// * 1e-2) (micro_probe3.py:117); MIX = true: 4 x (y = W x; x = x 1e-2 +
+// y 1e-3; 16 x (x = x 0.999 + 1)) (micro_probe3.py:146).
+//
+// Bound: the bytes (X read once, Y written once: 2 GiB at N = 2^22) for
+// TF32, the FP32 FMAs (8 x 64 x 64 a column) for FFMA.  Both routes run
+// persistent blocks (as many as fit on the card, each walking slabs s =
+// blockIdx.x, + gridDim.x, ...) that take W once -- a block a slab would
+// read it again each time, 1 GiB through L2 at N = 2^22 -- and stream the
+// slabs of 64 columns through a ring of shared-memory buffers by cp.async
+// (16 bytes a thread), the next slab or two loading while slab i runs its
+// chain in place; each chain step's output goes back into its buffer, and
+// Y leaves in 16-byte stores.
 
-const int kF = 64;          // features (rows of X, both sides of W)
-const int kCols = 64;       // columns per block
-const int kLdW = kF + 4;    // padded rows: conflict-free fragment reads
-const int kLdX = kCols + 8;
+const int kF = probe::kDotF;  // features (rows of X, both sides of W)
+const int kCols = 64;         // columns a slab
+const int kDotSteps = 8;      // products a chain: k_dot's, k_mix's
+const int kMixSteps = 4;
 
-__device__ __forceinline__ float mix_tail(float x, float y) {
-  x = x * 1e-2f + y * 1e-3f;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) x = x * 0.999f + 1.0f;
-  return x;
+// Slab s of x (64 x kCols, 16-byte pieces) into a buffer of row stride
+// ld, by cp.async; then the group is committed (empty when the block has
+// no slab s).
+__device__ __forceinline__ void slab_in(float* buf, int ld, const float* x,
+                                        long long n, long long s,
+                                        long long slabs) {
+  if (s < slabs)
+    for (int e = threadIdx.x; e < kF * kCols / 4; e += blockDim.x) {
+      const int r = e / (kCols / 4), q = e % (kCols / 4);
+      scan::cp_async16(reinterpret_cast<uint32_t*>(buf + r * ld + 4 * q),
+                       reinterpret_cast<const uint32_t*>(
+                           x + (long long)r * n + s * kCols + 4 * q));
+    }
+  scan::cp_commit();
 }
 
-__device__ void load_slab(float (*Ws)[kLdW], float (*Xs)[kLdX],
-                          const float* W, const float* x, long long n,
-                          long long c0) {
-  for (int e = threadIdx.x; e < kF * kF; e += blockDim.x)
-    Ws[e / kF][e % kF] = W[e];
-  for (int e = threadIdx.x; e < kF * kCols; e += blockDim.x)
-    Xs[e / kCols][e % kCols] = x[(long long)(e / kCols) * n + c0 + e % kCols];
-  __syncthreads();
-}
+// FP32: a thread the tile of 8 rows by TC = kTileC columns
+// (probe::dot_tile), 512 / TC threads a block; warp w owns columns 4 TC w
+// .. 4 TC w + 4 TC - 1 and all 64 rows, so its chain is its own: a warp
+// barrier a step.  Lane (g = lane % 8, q = lane / 8) holds rows 4g .. 4g +
+// 3 and 32 + 4g .. 35 + 4g, columns 4 TC w + 4q .. + 3 and + 16 .. + 19.
+// NS = kFfmaStages slabs in flight a block (four blocks of two warps an
+// SM).  The row stride of a slab buffer (68 floats) puts the 8 rows a warp
+// stores at once on both halves of the banks.  The tile makes 4 shared
+// loads of 16 bytes for 64 FMAs, where a tile of 8 x 4 makes 3 for 32
+// (probes/dot_variants.py builds it and times the two).
+const int kTileC = 8;
+const int kFfmaStages = 2;
+const int kLdF = kCols + 4;
+const int kLdWt = kF;
+const int kFfmaSmem = 4 * (kF * kLdWt + kFfmaStages * kF * kLdF);
 
-__device__ void store_slab(float* y, float (*Xs)[kLdX], long long n,
-                           long long c0) {
-  for (int e = threadIdx.x; e < kF * kCols; e += blockDim.x)
-    y[(long long)(e / kCols) * n + c0 + e % kCols] = Xs[e / kCols][e % kCols];
-}
-
-// FP32: 256 threads; thread (g, c) owns rows 16g .. 16g + 15 of column c,
-// summed over k in order with FFMA
 template <bool MIX>
-__global__ void __launch_bounds__(256) k_dot_ffma(float* y, const float* W,
-                                                  const float* x,
-                                                  long long n) {
-  __shared__ float Ws[kF][kLdW];
-  __shared__ float Xs[kF][kLdX];
-  const long long c0 = (long long)blockIdx.x * kCols;
-  load_slab(Ws, Xs, W, x, n, c0);
-  const int c = threadIdx.x % kCols;
-  const int r0 = (threadIdx.x / kCols) * 16;
-  const int steps = MIX ? 4 : 8;
-  for (int s = 0; s < steps; ++s) {
-    float acc[16];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) acc[r] = 0.0f;
-    for (int k = 0; k < kF; ++k) {
-      float xk = Xs[k][c];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) acc[r] += Ws[r0 + r][k] * xk;
-    }
-    if (MIX) {
-#pragma unroll
-      for (int r = 0; r < 16; ++r) acc[r] = mix_tail(Xs[r0 + r][c], acc[r]);
-    } else {
-#pragma unroll
-      for (int r = 0; r < 16; ++r) acc[r] *= 1e-2f;
-    }
+__global__ void __launch_bounds__(512 / kTileC, 4)
+k_dot_ffma(float* y, const float* W, const float* x, long long n) {
+  const int TC = kTileC, NS = kFfmaStages;
+  extern __shared__ float4 dot_smem[];
+  float* Wt = reinterpret_cast<float*>(dot_smem);
+  float* ring = Wt + kF * kLdWt;
+  const long long slabs = n / kCols;
+  const long long s0 = blockIdx.x, ds = gridDim.x;
+  for (int k = 0; k < NS - 1; ++k)
+    slab_in(ring + k * kF * kLdF, kLdF, x, n, s0 + k * ds, slabs);
+  for (int e = threadIdx.x; e < kF * kF; e += blockDim.x)
+    Wt[(e % kF) * kLdWt + e / kF] = W[e];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = 4 * (lane % 8), c0 = 4 * TC * warp + 4 * (lane / 8);
+  const int steps = MIX ? kMixSteps : kDotSteps;
+  for (long long it = 0;; ++it) {
+    const long long s = s0 + it * ds;
+    if (s >= slabs) break;
+    slab_in(ring + ((it + NS - 1) % NS) * kF * kLdF, kLdF, x, n,
+            s + (NS - 1) * ds, slabs);
+    scan::cp_wait<NS - 1>();
     __syncthreads();
+    float* X = ring + (it % NS) * kF * kLdF;
+    for (int step = 0; step < steps; ++step) {
+      float acc[8][TC], xo[8][TC];
+      probe::dot_tile<TC>(acc, Wt, kLdWt, X, kLdF, r0, c0);
+      if (MIX) {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) Xs[r0 + r][c] = acc[r];
-    __syncthreads();
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int h = 0; h < TC / 4; ++h)
+            probe::ld4(xo[i] + 4 * h,
+                       X + probe::dot_row(r0, i) * kLdF + c0 + 16 * h);
+      }
+      probe::dot_step_tail<MIX, TC>(acc, xo);
+      if (step + 1 == steps) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int h = 0; h < TC / 4; ++h)
+            *reinterpret_cast<float4*>(y + (long long)probe::dot_row(r0, i) * n +
+                                       s * kCols + c0 + 16 * h) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                            acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        break;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < TC / 4; ++h)
+          *reinterpret_cast<float4*>(X + probe::dot_row(r0, i) * kLdF + c0 +
+                                     16 * h) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                          acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      __syncwarp();
+    }
+    __syncthreads();    // the buffer is free for slab it + NS
   }
-  store_slab(y, Xs, n, c0);
+  scan::cp_wait<0>();
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float v) {
@@ -276,99 +324,167 @@ __device__ __forceinline__ uint32_t to_tf32(float v) {
   return u;
 }
 
-// TF32: 4 warps; warp w owns columns 16w .. 16w + 15 (two n-tiles of 8)
-// over all 64 rows (four m-tiles of 16): 8 tiles of m16n8k8, 32
-// accumulators a thread.  Fragment layouts of the PTX ISA for m16n8k8
-// .tf32: g = lane / 4, q = lane % 4; A (row-major) a0 (g, q), a1 (g + 8,
-// q), a2 (g, q + 4), a3 (g + 8, q + 4); B (column-major) b0 (q, g), b1
-// (q + 4, g); C c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8,
-// 2q + 1).
-template <bool MIX>
-__global__ void __launch_bounds__(128) k_dot_tf32(float* y, const float* W,
-                                                  const float* x,
-                                                  long long n) {
-  __shared__ float Ws[kF][kLdW];
-  __shared__ float Xs[kF][kLdX];
-  const long long c0 = (long long)blockIdx.x * kCols;
-  load_slab(Ws, Xs, W, x, n, c0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4;
-  const int steps = MIX ? 4 : 8;
-  for (int s = 0; s < steps; ++s) {
-    float acc[4][2][4];
+// TF32: 4 warps; warp w owns rows 32 (w % 2) .. + 31 (two m-tiles of 16)
+// and columns 32 (w / 2) .. + 31 (four n-tiles of 8): 8 tiles of m16n8k8,
+// 32 accumulators a thread.  Its A fragments, W converted to tf32 once a
+// block, stay in 64 registers.  Each chain step's output goes back into
+// the slab buffer already rounded to tf32 (the last step's in full), so
+// the B fragments of the next step need no conversion; k_mix's old x
+// stays in registers at the thread's accumulator positions.  Fragment
+// layouts of the PTX ISA for m16n8k8 .tf32: g = lane / 4, q = lane % 4;
+// A (row-major) a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q +
+// 4); B (column-major) b0 (q, g), b1 (q + 4, g); C c0 (g, 2q), c1 (g, 2q
+// + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1).  The row stride (72 floats)
+// puts a warp's B reads on 32 banks.
+const int kLdT = kCols + 8;
+
+template <bool CVT, int MT, int NT>
+__device__ __forceinline__ void tf32_product(float (&acc)[MT][NT][4],
+                                             const uint32_t (&a)[MT][8][4],
+                                             const float* X, int col,
+                                             int g, int q) {
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int t = 0; t < 2; ++t)
+    for (int t = 0; t < NT; ++t)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][t][i] = 0.0f;
+      for (int i = 0; i < 4; ++i) acc[m][t][i] = 0.0f;
 #pragma unroll
-    for (int k0 = 0; k0 < kF; k0 += 8) {
-      uint32_t bf[2][2];
+  for (int kk = 0; kk < kF / 8; ++kk) {
+    uint32_t b[NT][2];
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int col = warp * 16 + t * 8 + g;
-        bf[t][0] = to_tf32(Xs[k0 + q][col]);
-        bf[t][1] = to_tf32(Xs[k0 + q + 4][col]);
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = X[(8 * kk + q + 4 * h) * kLdT + col + 8 * t + g];
+        b[t][h] = CVT ? to_tf32(v) : __float_as_uint(v);
       }
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int row = m * 16 + g;
-        uint32_t a0 = to_tf32(Ws[row][k0 + q]);
-        uint32_t a1 = to_tf32(Ws[row + 8][k0 + q]);
-        uint32_t a2 = to_tf32(Ws[row][k0 + q + 4]);
-        uint32_t a3 = to_tf32(Ws[row + 8][k0 + q + 4]);
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          float* d = acc[m][t];
-          asm volatile(
-              "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-              "{%0, %1, %2, %3};\n"
-              : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-              : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(bf[t][0]),
-                "r"(bf[t][1]));
-        }
+      for (int t = 0; t < NT; ++t) {
+        float* d = acc[m][t];
+        asm volatile(
+            "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[m][kk][0]), "r"(a[m][kk][1]), "r"(a[m][kk][2]),
+              "r"(a[m][kk][3]), "r"(b[t][0]), "r"(b[t][1]));
       }
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = m * 16 + g + (i >= 2 ? 8 : 0);
-          const int col = warp * 16 + t * 8 + 2 * q + (i & 1);
-          acc[m][t][i] = MIX ? mix_tail(Xs[row][col], acc[m][t][i])
-                             : acc[m][t][i] * 1e-2f;
-        }
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = m * 16 + g + (i >= 2 ? 8 : 0);
-          const int col = warp * 16 + t * 8 + 2 * q + (i & 1);
-          Xs[row][col] = acc[m][t][i];
-        }
-    __syncthreads();
   }
-  store_slab(y, Xs, n, c0);
 }
 
+// MT = kMT m-tiles by NT n-tiles a warp, (2, 4): warps share columns in
+// pairs, and so a block barrier a step.  kStages slabs in flight a block.
+// (probes/dot_variants.py builds a warp of (4, 2), all 64 rows of its 16
+// columns at 128 registers of A fragments and a warp barrier a step.)
+const int kStages = 3;
+const int kMT = 2;
+
+template <bool MIX>
+__global__ void __launch_bounds__(128, 3)
+k_dot_tf32(float* y, const float* W, const float* x, long long n) {
+  const int MT = kMT, NT = 8 / kMT;
+  extern __shared__ float4 dot_smem[];
+  float* ring = reinterpret_cast<float*>(dot_smem);
+  const long long slabs = n / kCols;
+  const long long s0 = blockIdx.x, ds = gridDim.x;
+  for (int k = 0; k < kStages - 1; ++k)
+    slab_in(ring + k * kF * kLdT, kLdT, x, n, s0 + k * ds, slabs);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int row0 = 16 * MT * (warp % (4 / MT));
+  const int col = 8 * NT * (warp / (4 / MT));
+  uint32_t a[MT][8][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int r = row0 + 16 * m + g, k = 8 * kk + q;
+      a[m][kk][0] = to_tf32(W[r * kF + k]);
+      a[m][kk][1] = to_tf32(W[(r + 8) * kF + k]);
+      a[m][kk][2] = to_tf32(W[r * kF + k + 4]);
+      a[m][kk][3] = to_tf32(W[(r + 8) * kF + k + 4]);
+    }
+  // the thread's accumulator positions: (m, t, i) at (row(m, i), col(t, i))
+  auto at = [&](float* X, int m, int t, int i) -> float& {
+    return X[(row0 + 16 * m + g + (i >= 2 ? 8 : 0)) * kLdT + col + 8 * t +
+             2 * q + (i & 1)];
+  };
+  const int steps = MIX ? kMixSteps : kDotSteps;
+  for (long long it = 0;; ++it) {
+    const long long s = s0 + it * ds;
+    if (s >= slabs) break;
+    slab_in(ring + ((it + kStages - 1) % kStages) * kF * kLdT, kLdT, x, n,
+            s + (kStages - 1) * ds, slabs);
+    scan::cp_wait<kStages - 1>();
+    __syncthreads();
+    float* X = ring + (it % kStages) * kF * kLdT;
+    float xo[MT][NT][4];
+    if (MIX) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) xo[m][t][i] = at(X, m, t, i);
+    }
+    for (int step = 0; step < steps; ++step) {
+      float acc[MT][NT][4];
+      if (step == 0) tf32_product<true>(acc, a, X, col, g, q);
+      else tf32_product<false>(acc, a, X, col, g, q);
+      const bool last = step + 1 == steps;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float v = acc[m][t][i];
+            v = MIX ? probe::mix_tail(xo[m][t][i], v) : v * 1e-2f;
+            if (MIX) xo[m][t][i] = v;
+            acc[m][t][i] = last ? v : __uint_as_float(to_tf32(v));
+          }
+      __syncthreads();    // the step's products read
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) at(X, m, t, i) = acc[m][t][i];
+      __syncthreads();    // the step's outputs stored
+    }
+    // the warp's own rows and columns, 16 bytes a move
+    for (int e = lane; e < 16 * MT * 2 * NT; e += 32) {
+      const int r = row0 + e / (2 * NT), c = col + 4 * (e % (2 * NT));
+      *reinterpret_cast<float4*>(y + (long long)r * n + s * kCols + c) =
+          *reinterpret_cast<const float4*>(X + r * kLdT + c);
+    }
+    __syncthreads();    // the buffer is free for slab it + kStages
+  }
+  scan::cp_wait<0>();
+}
+
+// Persistent blocks: as many as the card holds at once, no more than the
+// slabs.
 template <bool MIX>
 int launch_dot(int route, void* y, const void* W, const void* x, long long n,
                void* stream) {
-  unsigned blocks = (unsigned)(n / kCols);
-  if (blocks == 0) return (int)cudaGetLastError();
-  if (route == 0)
-    k_dot_ffma<MIX><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (float*)y, (const float*)W, (const float*)x, n);
-  else
-    k_dot_tf32<MIX><<<blocks, 128, 0, (cudaStream_t)stream>>>(
-        (float*)y, (const float*)W, (const float*)x, n);
+  const long long slabs = n / kCols;
+  if (slabs == 0) return (int)cudaGetLastError();
+  void (*k)(float*, const float*, const float*, long long) =
+      route == 0 ? k_dot_ffma<MIX> : k_dot_tf32<MIX>;
+  const int smem = route == 0 ? kFfmaSmem : 4 * kStages * kF * kLdT;
+  const int threads = route == 0 ? 512 / kTileC : 128;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, smem);
+  const long long blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  k<<<(unsigned)(blocks < slabs ? blocks : slabs), threads, smem,
+      (cudaStream_t)stream>>>((float*)y, (const float*)W, (const float*)x, n);
   return (int)cudaGetLastError();
 }
 

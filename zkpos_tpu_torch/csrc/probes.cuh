@@ -18,7 +18,9 @@
 //   * the three-pass segmented scan's serial block pass and fix-up on
 //     ec.cuh's complete add (scripts/probe_segscan.py:101), and the
 //     limb-wise wrapping add that the single-pass scan's structure probe
-//     runs in place of it (scripts/probe_segscan.py:19).
+//     runs in place of it (scripts/probe_segscan.py:19);
+//   * the weights-first product's FP32 register tile and its elementwise
+//     steps (scripts/micro_probe3.py:117,146).
 //
 // Nothing here is on a main path: the kernels of seg_scan.cu and
 // poseidon.cu are left as they are, and the ablations are copies of their
@@ -550,6 +552,85 @@ FF_HD void fixup_block(uint32_t* out, const uint8_t* heads,
   for (long long i = start; i < end && !heads[i]; ++i)
     ff::store_point(out + w * i,
                     ff::padd(carry, ff::load_point<E>(out + w * i)));
+}
+
+// --- the weights-first product's FP32 tile --------------------------------
+//
+// Y = W(64, 64) X(64, 64) of one slab of 64 columns, one thread an outer
+// product of 8 rows by TC columns (dot_tile).  Wt holds W transposed
+// (Wt[k ldw + r] = W[r][k]), X the slab (X[k ldx + c]); both 16-byte
+// aligned with 16-byte row strides.  For each k the thread reads W's
+// column as two 16-byte pieces and X's row as TC / 4, and makes 8 TC FMAs
+// (64 FMAs to 4 shared-memory loads at TC = 8).  Each sum runs over k in
+// ascending order from 0.0f, one fmaf a product, as the one-FMA-a-load
+// form before it did, so the products round alike.
+
+const int kDotF = 64;     // features: W's rows and columns, X's rows
+
+// r = p[0 .. 3], p 16-byte aligned: one 16-byte load on the card
+FF_HD void ld4(float* r, const float* p) {
+#if defined(__CUDACC__)
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  r[0] = v.x;
+  r[1] = v.y;
+  r[2] = v.z;
+  r[3] = v.w;
+#else
+  for (int i = 0; i < 4; ++i) r[i] = p[i];
+#endif
+}
+
+// The tile's row i (0 .. 7): r0 + i for i < 4, r0 + 28 + i after; its
+// column j (0 .. TC - 1): c0 + j, and for a tile of 8 columns c0 + 12 + j
+// after the first 4.
+FF_HD int dot_row(int r0, int i) { return r0 + (i < 4 ? i : 28 + i); }
+FF_HD int dot_col(int c0, int j) { return c0 + (j < 4 ? j : 12 + j); }
+
+// The tile of 8 rows by TC = 4 or 8 columns: per k, W's column as two
+// 16-byte pieces and X's row as TC / 4, for 8 TC FMAs.
+template <int TC>
+FF_HD void dot_tile(float (&acc)[8][TC], const float* Wt, int ldw,
+                    const float* X, int ldx, int r0, int c0) {
+  FF_UNROLL
+  for (int i = 0; i < 8; ++i)
+    FF_UNROLL
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
+#if defined(__CUDACC__)
+#pragma unroll 8
+#endif
+  for (int k = 0; k < kDotF; ++k) {
+    float a[8], x[TC];
+    ld4(a, Wt + k * ldw + r0);
+    ld4(a + 4, Wt + k * ldw + r0 + 32);
+    FF_UNROLL
+    for (int h = 0; h < TC / 4; ++h)
+      ld4(x + 4 * h, X + k * ldx + c0 + 16 * h);
+    FF_UNROLL
+    for (int i = 0; i < 8; ++i)
+      FF_UNROLL
+      for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(a[i], x[j], acc[i][j]);
+  }
+}
+
+// k_mix's elementwise steps after its product y (micro_probe3.py:153-156):
+// x = x 1e-2 + y 1e-3, then 16 dependent x = x 0.999 + 1
+FF_HD float mix_tail(float x, float y) {
+  x = x * 1e-2f + y * 1e-3f;
+  FF_UNROLL
+  for (int k = 0; k < 16; ++k) x = x * 0.999f + 1.0f;
+  return x;
+}
+
+// One chain step's elementwise part for the tile: k_dot scales the
+// product by 1e-2; k_mix runs mix_tail on the tile's old x (xo) and the
+// product.  acc becomes the tile's new x.
+template <bool MIX, int TC>
+FF_HD void dot_step_tail(float (&acc)[8][TC], const float (&xo)[8][TC]) {
+  FF_UNROLL
+  for (int i = 0; i < 8; ++i)
+    FF_UNROLL
+    for (int j = 0; j < TC; ++j)
+      acc[i][j] = MIX ? mix_tail(xo[i][j], acc[i][j]) : acc[i][j] * 1e-2f;
 }
 
 }  // namespace probe

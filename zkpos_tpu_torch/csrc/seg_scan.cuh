@@ -53,6 +53,16 @@ namespace scan {
 using ff::Point;
 using ff::padd;
 
+// How much of seg_scan's body runs: all of it (the production kernels),
+// or a probes' stage (csrc/probes_stages.cu), cut off at compile time.
+// kPhaseLocal runs the lanes' serial passes alone, each lane's first
+// element taken as a head (no count, no lanes' scan, no carry, no
+// look-back); kPhaseAgg runs everything but adding the carries to the
+// elements before each lane's first head, and leaves each such lane's
+// carry-in in its scratch slot (Scratch::carry, lane l of tile t at
+// t kLanes + l).
+enum Phase { kPhaseLocal = 0, kPhaseAgg = 1, kPhaseFull = 2 };
+
 // One lane's serial pass over its range.  `acc` is the sum of the current
 // segment's elements within the range, `idx` the current segment's index
 // in the stream, `open` whether the current segment began before the range,
@@ -439,9 +449,11 @@ __device__ __forceinline__ void point_lookback(const uint32_t* pst,
 // chunk's running prefix carried from each tile to the next; `smem` is
 // the warp's own share of shared memory.  Pass is the serial pass's add,
 // Add every other.
-template <class E, int MODE, int K, class Pass, class Add>
+template <class E, int MODE, int K, class Pass, class Add, int PHASE>
 __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
   static_assert(K <= 64, "a lane's heads are one 64-bit mask");
+  static_assert(PHASE == kPhaseFull || MODE == kScan,
+                "the stages are seg_scan's");
   typedef WarpSmem<E, MODE> S;
   const int W = Words<E>::W;
   const long long tile = kLanes * K;
@@ -476,11 +488,14 @@ __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
   const long long c1 = c0 + a.tpc * tile < n ? c0 + a.tpc * tile : n;
 
   // 1. the chunk's head count, and the heads before it by the look-back
-  uint32_t own = 0;
-  for (long long i = c0 + lane; i < c1; i += kLanes)
-    own += (i == 0 || a.heads[i]) ? 1u : 0u;
-  own = __reduce_add_sync(kFull, own);
-  long long seen = (long long)count_lookback(cnt, c, own, lane);
+  long long seen = 0;
+  if constexpr (PHASE != kPhaseLocal) {
+    uint32_t own = 0;
+    for (long long i = c0 + lane; i < c1; i += kLanes)
+      own += (i == 0 || a.heads[i]) ? 1u : 0u;
+    own = __reduce_add_sync(kFull, own);
+    seen = (long long)count_lookback(cnt, c, own, lane);
+  }
 
   // 2. the tiles, each: its lanes' passes, their scan, their carries
   const bool open_start = !(c0 == 0 || a.heads[c0]);
@@ -537,7 +552,7 @@ __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
       if (s + j < n) {
         const Point<E>& p = pts(j)[lane];
         const bool h = (mask >> j) & 1;
-        if (j == 0) run_first(r, p, h, base);
+        if (j == 0) run_first(r, p, PHASE == kPhaseLocal || h, base);
         else run_take(r, p, h, emit, pass);
         if constexpr (MODE == kScan) ost[lane] = r.acc;
       }
@@ -549,6 +564,7 @@ __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
     }
     if (s < n && seg_end) emit(r);
     cp_wait<0>();
+    if constexpr (PHASE == kPhaseLocal) continue;
 
     // the lanes' inclusive scan in shared memory
     pts(0)[lane] = r.acc;
@@ -578,12 +594,16 @@ __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
       // a carry without x waits in scratch: the element gets one add, at the
       // end, of x and it together
       bool has = r.pre && lane_carry(cy, lane, span, sf, run, has_run, add);
-      if (has && !done) {
-        *waiting(c, (t0 - c0) / tile, lane) = cy;
-        has = false;
+      if constexpr (PHASE == kPhaseAgg) {
+        if (has) *waiting(c, (t0 - c0) / tile, lane) = cy;
+      } else {
+        if (has && !done) {
+          *waiting(c, (t0 - c0) / tile, lane) = cy;
+          has = false;
+        }
+        fix_up<E, K>(a.out, smem + S::ostage, t0, n, has ? r.pre : 0u, cy,
+                     lane, add);
       }
-      fix_up<E, K>(a.out, smem + S::ostage, t0, n, has ? r.pre : 0u, cy,
-                   lane, add);
     }
     __syncwarp();
     if (lane == kLanes - 1)
@@ -593,6 +613,7 @@ __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
     head = __shfl_sync(kFull, (uint32_t)head, kLanes - 1) != 0;
     __syncwarp();
   }
+  if constexpr (PHASE == kPhaseLocal) return;
   deferred = __reduce_max_sync(kFull, (unsigned)(deferred + 1)) - 1ll;
 
   // 3. publish the chunk's point; if it began inside a segment, take the
@@ -628,18 +649,22 @@ __device__ __forceinline__ void seg_chunk(const Args& a, uint32_t* smem) {
         if (t0 == c0 && lane == 0) cx = x;
         else add(cx, x, *waiting(c, (t0 - c0) / tile, lane));
       }
-      fix_up<E, K>(a.out, smem + S::ostage, t0, n, pre, cx, lane, add);
+      if constexpr (PHASE == kPhaseAgg) {
+        if (pre) *waiting(c, (t0 - c0) / tile, lane) = cx;
+      } else {
+        fix_up<E, K>(a.out, smem + S::ostage, t0, n, pre, cx, lane, add);
+      }
     }
   }
 }
 
 template <class E, int MODE, int K, class Pass = InlineAdd,
-          class Add = ColdAdd>
+          class Add = ColdAdd, int PHASE = kPhaseFull>
 __device__ __forceinline__ void seg_kernel_body(const Args& a) {
   extern __shared__ uint4 seg_smem[];
   uint32_t* smem = reinterpret_cast<uint32_t*>(seg_smem) +
                    (threadIdx.x / kLanes) * WarpSmem<E, MODE>::words;
-  seg_chunk<E, MODE, K, Pass, Add>(a, smem);
+  seg_chunk<E, MODE, K, Pass, Add, PHASE>(a, smem);
 }
 
 template <class E>

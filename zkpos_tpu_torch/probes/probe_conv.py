@@ -16,6 +16,12 @@ reads 32 neighbouring words per digit.  Bound: FP32 FMAs at 128 per SM per
 clock (1,156 a product, 595 a squaring, plus the fold's 68); the TPU chose
 digits in f32 because its f32 FMA outran its u32 multiply, and this probe
 measures the same trade here.
+
+Library yardstick: one PyTorch call computes each round's convolution,
+``torch.nn.functional.conv1d`` with a group a column and the column's
+digits as its kernel (library_rounds), timed over the same rounds and fold
+with cuDNN's TF32 off (the kernel is exact float32).  It is never the
+kernel.
 """
 
 from __future__ import annotations
@@ -90,6 +96,24 @@ def plain_rounds(form: str, a: torch.Tensor, b: torch.Tensor):
     return x
 
 
+def library_rounds(form: str, a: torch.Tensor, b: torch.Tensor):
+    """The same rounds with each convolution one PyTorch call:
+    conv1d over the columns as N groups of one channel, a column's 34
+    digits of b (of x itself for the triangle's squaring) reversed as its
+    kernel, padded to the 67 coefficients; the fold in PyTorch.  (34, n)
+    planes in and out."""
+    n = a.shape[1]
+    x, bt = a.T.contiguous(), b.T.contiguous()
+    wb = bt.flip(1).unsqueeze(1).contiguous()
+    for _ in range(REPS):
+        w = x.flip(1).unsqueeze(1) if form == "triangle" else wb
+        c = torch.nn.functional.conv1d(x.unsqueeze(0), w, padding=ND - 1,
+                                       groups=n)[0]
+        x = (c[:, :ND] * 1e-7
+             + torch.nn.functional.pad(c[:, ND:], (0, 1)) * 1e-7 + bt)
+    return x.T.contiguous()
+
+
 def conv_rounds(form: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """k_conv on the card (counted as ``conv_<form>``), plain_rounds on the
     CPU.  a, b: (34, n) float32."""
@@ -125,6 +149,17 @@ def run(device=None, log=print):
     a, b = inputs(N, 0, dev)
     times = {form: C.time_ms(lambda: conv_rounds(form, a, b), dev, reps=5)
              for form in FORMS}
+    lib = {}
+    if dev.type == "cuda":
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for form in ("grouped", "triangle"):     # padloop's is grouped's
+                lib[form] = C.time_ms(lambda: library_rounds(form, a, b),
+                                      dev, reps=2)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        lib["padloop"] = lib["grouped"]
 
     def check():
         ac, bc = a[:, :CHECK_N].contiguous(), b[:, :CHECK_N].contiguous()
@@ -134,10 +169,22 @@ def run(device=None, log=print):
             k = conv_rounds(form, ac, bc)
             p, plain_ms = C.timed(lambda: plain_rounds(form, ac, bc), dev)
             fmas = N * REPS * (FMAS[form] + 2 * ND)
+            extra = {}
+            if form in lib:
+                saved = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+                try:
+                    extra["library_rel_err"] = C.max_rel_err(
+                        library_rounds(form, ac, bc), p)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = saved
+                extra["library"] = ("torch.nn.functional.conv1d, groups=N, "
+                                    "cudnn.allow_tf32=False")
             r = C.row(f"conv_{form}", REPLACES, N, ms, plain_ms, CHECK_N,
                       3 * ND * 4 * N, fmas / C.FP32_FMA_PER_S,
                       C.max_abs_err(k, p), rel_err=C.max_rel_err(k, p),
-                      tol=TOL, mconv_per_s=round(N * REPS / ms / 1e3, 3),
+                      tol=TOL, library_ms=lib.get(form), **extra,
+                      mconv_per_s=round(N * REPS / ms / 1e3, 3),
                       gfma_per_s=round(fmas / ms / 1e6, 3),
                       share_of_fp32_peak=round(fmas / ms / 1e-3
                                                / C.FP32_FMA_PER_S, 4),

@@ -4,15 +4,21 @@ Counterpart of scripts/micro_probe3.py:117-159 (``k_dot``: 8 chained
 products, each scaled by 1e-2; ``k_mix``: 4 x (the product, then
 ``x = x 1e-2 + y 1e-3`` and 16 dependent ``x = x 0.999 + 1``)), which
 measured the TPU's MXU through ``pl.dot`` with the batch on the lanes.
-On this card ``k_dot_ffma`` / ``k_dot_tf32`` (csrc/probes.cu) keep W and a
-block's slab of 64 columns in shared memory through the whole chain and
-run the products two ways:
+On this card ``k_dot_ffma`` / ``k_dot_tf32`` (csrc/probes.cu) run
+persistent blocks that take W once and stream X's slabs of 64 columns
+through a ring of three shared-memory buffers (cp.async), each slab's
+chain in place in its buffer while the next two load, Y leaving in
+16-byte stores; the products two ways:
 
-* ``ffma``: exact float32 FMAs on the FP32 pipes (bound: 128 FMAs per SM
-  per clock);
+* ``ffma``: exact float32 FMAs on the FP32 pipes, a register tile of 8
+  rows x 4 columns a thread (csrc/probes.cuh ``dot_tile``: 32 FMAs to 3
+  shared loads), each sum over k in ascending order (bound: 128 FMAs per
+  SM per clock);
 * ``tf32``: the TF32 tensor cores through ``mma.sync.aligned.m16n8k8``,
-  this card's matrix unit as the MXU was the TPU's (bound: 495 TFLOP/s
-  dense), with the elementwise tail on the FP32 pipes.
+  this card's matrix unit as the MXU was the TPU's, W's A fragments
+  converted once a block and kept in registers, each step's output stored
+  back already rounded to tf32 (bound: the bytes of X and Y, 495 TFLOP/s
+  dense beside them), with the elementwise tail on the FP32 pipes.
 
 The one probe with a library yardstick: ``torch.matmul`` over the same
 chain, timed with ``torch.backends.cuda.matmul.allow_tf32`` False (beside
@@ -153,7 +159,10 @@ def run(device=None, log=print):
                           library_ms=lib.get((kind, route == "tf32")),
                           library=("torch.matmul, allow_tf32="
                                    f"{route == 'tf32'}"),
-                          tflops=round(2 * mm / ms / 1e9, 3), device=dev.type)
+                          tflops=round(2 * mm / ms / 1e9, 3),
+                          ptxas=next(iter(C.kernel_resources(
+                              f"k_dot_{route}ILb{int(kind == 'mix')}E"
+                          ).values()), None), device=dev.type)
                 log(f"probe dot_{kind}_{route}: {ms:.3f} ms, {r['tflops']} "
                     f"TFLOP/s, library {r['library_ms']} ms, rel err "
                     f"{rel:.2e} (tol {r['tol']})")

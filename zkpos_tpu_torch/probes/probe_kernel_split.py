@@ -71,7 +71,7 @@ HASHES = {"hashes2": 2, "hashes4": 4}
 REPLACES = "scripts/probe_kernel_split.py:86"
 SOURCE = "zkpos_tpu_torch/csrc/probes_split.cu"
 LOG_LEAVES = 27         # the tree path's leaves: 2^26 pairs at level 0
-REPS = 2
+REPS = 1                # a launch of 0.08-1.8 s, after a warm-up
 CHECK_N = 1 << 10
 MONTS = 604             # Montgomery products of one sparse Poseidon(2)
 MULS = {"full": C.MULS_PER_MONT, "noproduct": 8, "noreduce": 128,

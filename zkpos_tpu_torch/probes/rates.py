@@ -45,7 +45,7 @@ from . import common as C
 
 CHAIN = 64            # CH: dependent steps per load (probes.cuh kChain)
 N = 1 << 22           # elements: one chain each
-ITERS = 2048          # x 64 steps: >= 10 ms a launch for every body
+ITERS = 1024          # x 64 steps: >= 8 ms a launch for every body
 CHECK_ITERS = 2       # chains the check runs against the plain version
 M32 = 0xFFFFFFFF
 # f32 chains against the plain version: nvcc contracts x*b + b to one FMA

@@ -117,6 +117,10 @@ class WitnessService:
         # generation -> PARALLEL serialize workers -> ORDER-PRESERVING
         # collector -> batched DB writes with a 16 MB payload cap.
         workers = max(1, (os.cpu_count() or 2) - 1)
+        try:
+            pool = _pool(workers)
+        except Exception:
+            pool = None         # no pool: the serial path, same writes
         pending: List[BatchWitnessRow] = []
         pending_bytes = 0
         written = 0
@@ -148,19 +152,24 @@ class WitnessService:
         gen = wcore.generate_batch_witnesses(
             self.tree, self.accounts, self.cex_assets, self.tiers,
             start_height=height)
-        with _pool(workers) as pool:
-            inflight = collections.deque()
+        if pool is None:
             for h, wit in gen:
-                inflight.append((h, pool.submit(encode_batch_witness, wit)))
-                while len(inflight) > 2 * workers:
+                collect(h, encode_batch_witness(wit))
+        else:
+            with pool:
+                inflight = collections.deque()
+                for h, wit in gen:
+                    inflight.append(
+                        (h, pool.submit(encode_batch_witness, wit)))
+                    while len(inflight) > 2 * workers:
+                        hh, fut = inflight.popleft()
+                        collect(hh, fut.result())
+                while inflight:
                     hh, fut = inflight.popleft()
                     collect(hh, fut.result())
-            while inflight:
-                hh, fut = inflight.popleft()
-                collect(hh, fut.result())
         flush()
         print(f"witness: wrote {written} batch witnesses "
-              f"({workers} serialize workers)")
+              f"({workers if pool else 0} serialize workers)")
         return written
 
     # -- user proofs ----------------------------------------------------------
@@ -182,8 +191,10 @@ class WitnessService:
         # resume-by-max-index stays sound because segment k+1 is only
         # written after segment k.  Leaves and proofs are read from the
         # device tree, one batched read per segment.
+        # ZKPOS_USERPROOF_WORKERS=0 (or 1) forces the serial path.
         root_hex = self.tree.root().hex()
-        n_workers = os.cpu_count() or 1
+        n_workers = int(os.environ.get(
+            "ZKPOS_USERPROOF_WORKERS", str(max(1, os.cpu_count() or 2))))
         written = 0
         segments = list(range(start, self.capacity, SEGMENT))
 
@@ -210,8 +221,14 @@ class WitnessService:
                 self.userproof_model.create_user_proofs(rows)
                 written += len(rows)
 
+        pool = None
         if n_workers > 1 and len(segments) > 1:
-            with _pool(n_workers) as pool:
+            try:
+                pool = _pool(n_workers)
+            except (ImportError, ValueError, OSError):
+                pool = None     # no pool: the serial path, same writes
+        if pool is not None:
+            with pool:
                 pending = []
                 for lo in segments:
                     pending.append(pool.submit(_userproof_rows_segment,
@@ -222,12 +239,11 @@ class WitnessService:
                 for fut in pending:
                     write_rows(fut.result())
         else:
-            n_workers = 0
             for lo in segments:
                 write_rows(_userproof_rows_segment(seg_payload(lo)))
         self.userproof_model.add_account_id_index()
         print(f"witness: wrote {written} user proofs "
-              f"({n_workers} segment workers)")
+              f"({n_workers if pool else 0} segment workers)")
         return written
 
     def run(self):

@@ -138,6 +138,7 @@ def cuda_lib() -> ctypes.CDLL:
                 "zk_probe_scan_local": [I, V, V, V, V, V, LL, I, V],
                 "zk_probe_scan_fixup": [I, V, V, V, LL, I, V],
                 "zk_probe_lookback": [I, V, V, V, V, LL, V],
+                "zk_probe_scan_stage": [I, I, V, V, V, V, LL, V],
                 "zk_probe_dot": [I, I, V, V, V, LL, V],
             }
             for name, args in sigs.items():
@@ -152,6 +153,11 @@ def cuda_lib() -> ctypes.CDLL:
             L.zk_probe_scan_bytes.restype = LL
             L.zk_probe_scan_tpc.argtypes = [I, LL]
             L.zk_probe_scan_tpc.restype = LL
+            for fn in (L.zk_probe_stage_bytes, L.zk_probe_stage_carries):
+                fn.argtypes = [I, LL]
+                fn.restype = LL
+            L.zk_probe_stage_tpc.argtypes = [I, I, LL]
+            L.zk_probe_stage_tpc.restype = LL
             _cuda_lib = L
     return _cuda_lib
 
