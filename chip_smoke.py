@@ -27,7 +27,7 @@ Phases, in order; any failure exits non-zero:
      representatives with a coordinate's limbs at p - 1 or 1), the Horner
      kernels on prove #2's five window-sum sets (against plain_horner and
      the host oracle; then the one-point add loop the MSM ran before
-     against one launch, in turns), and the
+     against one launch, by canonical value, in turns), and the
      segmented scan and segment sums over the path's own MSM streams (the
      30.8 M-point G1 witness stream in full; the 33.6 M-point G1 H stream
      and the 42.3 M-point G2 stream on head-aligned slices), and over
@@ -118,6 +118,9 @@ INT32_MUL_PER_S = 132 * 64 * 1.98e9
 MULS_PER_MONT = 8 * (16 + 1 + 16)
 # G1: 12 (its two 3b = 9 are doublings); G2: 3 x (12 + two 3b)
 MONTS_PER_ADD = {3: 12, 6: 42}
+# the doubling (Algorithm 9, 6M + 2S): G1 8 (its 3b = 9 by doublings); G2
+# 3 x (8 + one 3b)
+MONTS_PER_DBL = {3: 8, 6: 27}
 # accounts of the witness-service path (2^16; not below 2^14)
 SERVICE_ACCOUNTS = 1 << 16
 
@@ -999,10 +1002,13 @@ def phase_horner(windows):
     plain_horner and by affine value against the host oracle
     sum_w 2^(c w) rw[w]; then the G2 window sums and one G1 set through the
     loop of one-point ec.point_add launches the MSM made before (written
-    here: the package keeps no second path) and through ec.horner, in
-    turns, with the launches of each.  Bound: the adds' products at the
-    data sheet's rate, though one thread runs them as one dependent
-    chain."""
+    here: the package keeps no second path; its complete-add doublings give
+    another projective representative, so it is held by canonical value,
+    same_points) and through ec.horner, in turns, with the launches of
+    each.  Bound: the function's
+    products (a doubling by Algorithm 9, an add by the complete formula) at
+    the data sheet's rate; beside it the schedule's critical path in
+    product levels and the ms a level."""
     import torch
     from zkpos_tpu_torch.crypto import bn254 as bn
     from zkpos_tpu_torch.ops import ec, field as F
@@ -1010,7 +1016,6 @@ def phase_horner(windows):
     for rw, c in windows:
         na, W = rw.shape[1], rw.shape[0]
         name = "g1_horner" if na == 3 else "g2_horner"
-        adds = (W - 1) * (c + 1)
         k = ec.horner(rw, c)
         p, plain_ms = timed(lambda: ec.plain_horner(rw, c))
         mul, add = ((bn.g1_mul, bn.g1_add) if na == 3
@@ -1021,8 +1026,11 @@ def phase_horner(windows):
                 want = add(want, mul(pt, 1 << (c * w)))
         if ec.to_affine(k.cpu()) != [want]:
             fail(f"{name} disagrees with the host oracle")
+        monts = (W - 1) * (c * MONTS_PER_DBL[na] + MONTS_PER_ADD[na])
         a = acc.setdefault(name, {"err": 0, "ms": [], "plain_ms": 0.0,
-                                  "n": adds, "bytes": (W + 1) * na * 32})
+                                  "n": (W - 1) * (c + 1), "monts": monts,
+                                  "depth": ec.horner_levels(W, c),
+                                  "bytes": (W + 1) * na * 32})
         a["err"] = max(a["err"], max_abs_err(k, p))
         a["ms"].append(cuda_ms(lambda: ec.horner(rw, c), reps=3))
         a["plain_ms"] += plain_ms
@@ -1032,10 +1040,15 @@ def phase_horner(windows):
         ms = sum(a["ms"]) / len(a["ms"])
         rows.append(make_row(name, a["err"], ms, a["n"],
                              a["plain_ms"] / len(a["ms"]), a["n"],
-                             a["bytes"], a["n"] * MONTS_PER_ADD[na]
-                             * MULS_PER_MONT))
+                             a["bytes"], a["monts"] * MULS_PER_MONT))
         rows[-1]["ptxas"] = ptxas_of(f"8k_hornerIN2ff3Fp{na // 3}EE")
         rows[-1]["ms_each"] = [round(x, 4) for x in a["ms"]]
+        rows[-1]["products"] = a["monts"]
+        rows[-1]["critical_path_levels"] = a["depth"]
+        rows[-1]["us_per_level"] = round(ms * 1e3 / a["depth"], 4)
+        log(f"  {name}: {a['depth']} product levels on the critical path, "
+            f"{rows[-1]['us_per_level']} us a level; ptxas "
+            f"{json.dumps(rows[-1]['ptxas'])}")
 
     # the loop the MSM ran before, against one launch, in turns
     def loop(rw, c):
@@ -1062,7 +1075,7 @@ def phase_horner(windows):
             res[f"{form}_ms"].append(round((time.time() - t0) * 1e3, 3))
             res[f"{form}_launches"] = sum((Counter(F.LAUNCHES)
                                            - before).values())
-            if not torch.equal(out, ec.horner(rw, c)):
+            if not same_points(out, ec.horner(rw, c)):
                 fail(f"{curve}: the one-point add loop and the Horner kernel "
                      "differ")
         apart[curve] = res

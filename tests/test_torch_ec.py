@@ -1,7 +1,9 @@
-"""The port's point add, Horner and segmented scan (zkpos_tpu_torch/ops/ec.py,
-the plain versions of csrc/ec_add.cu -- point_add, horner -- and
+"""The port's point add, doubling, Horner and segmented scan
+(zkpos_tpu_torch/ops/ec.py, the plain versions of csrc/ec_add.cu --
+point_add, plain_point_double, horner -- and
 csrc/seg_scan.cu: seg_scan and seg_sums) against the JAX package's CPU path
-(zkpos_tpu/ops/msm_device.py: _padd, _horner_windows, _seg_scan_hs) and
+(zkpos_tpu/ops/msm_device.py: _padd, _padd of a point and itself,
+_horner_windows, _seg_scan_hs) and
 the bn254 host oracle.  Exact: affine points
 compared with ==.
 """
@@ -67,6 +69,23 @@ def test_point_add_matches_jax_and_oracle(curve):
     jax_out = _jax_affine(curve, jmd._padd(na, _jax_arrs(curve, xs),
                                            _jax_arrs(curve, ys)))
     oracle = [add(a, b) for a, b in pairs]
+    assert _same(port, oracle)
+    assert _same(jax_out, oracle)
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_point_double_matches_jax_and_oracle(curve):
+    """The dedicated doubling's plain version (ops/ec.plain_point_double,
+    Algorithm 9) against the JAX package's complete add of a point to
+    itself, _padd(na, a, a), and the oracle, by affine value: the identity,
+    a point and its negation among them."""
+    _, _, add, neg, na, _, _ = CURVES[curve]
+    P = _points(curve, 3, 21 if curve == "g1" else 22)
+    pts = [None, P[0], neg(P[0]), P[1], P[2]]
+    port = ec.to_affine(ec.plain_point_double(_to_port(curve, pts)))
+    arrs = _jax_arrs(curve, pts)
+    jax_out = _jax_affine(curve, jmd._padd(na, arrs, arrs))
+    oracle = [add(p, p) for p in pts]
     assert _same(port, oracle)
     assert _same(jax_out, oracle)
 

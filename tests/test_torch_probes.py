@@ -433,6 +433,27 @@ def test_ec_variants_sources():
         assert f.read() == g.read()
 
 
+@pytest.mark.parametrize("variant", ["products_only", "sum_loads_only",
+                                     "exchange_only", "no_trade"])
+def test_horner_variants_sources(variant):
+    """The Horner ablation script's copies of csrc: each substitution made
+    where the script says (so a change to ec.cuh that moves the text fails
+    here, not on the card), every other file unchanged."""
+    from zkpos_tpu_torch.probes import horner_variants as hv
+    from zkpos_tpu_torch.utils import build
+    subs = hv.VARIANTS[variant]
+    out = hv.variant_sources("horner_variants", "test_" + variant,
+                             build.CSRC, subs)
+    with open(os.path.join(out, "ec.cuh")) as g:
+        text = g.read()
+    for _, old, new in subs:
+        assert new in text and old not in text.replace(new, "")
+    for f in ("ec_add.cu", "fp_ec.cuh", "field.cuh"):
+        with open(os.path.join(build.CSRC, f)) as g, \
+                open(os.path.join(out, f)) as h:
+            assert g.read() == h.read()
+
+
 @pytest.mark.parametrize("variant", sorted(pdv.VARIANTS))
 def test_dot_variants_sources(variant):
     """The product variants script's copies of csrc: each substitution

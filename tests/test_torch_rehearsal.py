@@ -90,6 +90,8 @@ def harness(tmp_path_factory):
     L.rh_cc.argtypes = [I, V, V, V, V, V, V, LG]
     L.rh_fp_lazy.argtypes = [I, V, V, V, LG]
     L.rh_horner.argtypes = [I, V, I, I, V]
+    L.rh_point_double.argtypes = [I, V, V, LG]
+    L.rh_horner_schedule.argtypes = [I, V]
     return L
 
 
@@ -359,14 +361,67 @@ def test_complete_add_scaled(harness, curve):
 @pytest.mark.parametrize("curve,W,c", [("g1", 3, 4), ("g2", 3, 4),
                                        ("g1", 1, 16), ("g2", 2, 1)])
 def test_horner(harness, curve, W, c):
-    """ec.cuh's horner (the Horner kernels' body) against
-    ops/ec.plain_horner, limb for limb: the same adds in the same order,
-    with the identity among the window sums."""
+    """ec.cuh's horner (the Horner kernels' body: its schedule of levels,
+    the 32 lanes stepped in order) against ops/ec.plain_horner, limb for
+    limb: the same doublings and adds in the same order, with the identity
+    among the window sums; every slot below 2p at every level's end."""
     pts = [None] + _points_g(curve, W - 1, 500 + W)
     rw = tec.from_affine(pts[::-1], curve)
     out = torch.zeros((1, rw.shape[1], 8), dtype=torch.int32)
-    harness.rh_horner(rw.shape[1], rw.data_ptr(), W, c, out.data_ptr())
+    assert harness.rh_horner(rw.shape[1], rw.data_ptr(), W, c,
+                             out.data_ptr()) == 0
     assert torch.equal(out, tec.plain_horner(rw, c))
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_horner_schedule(harness, curve):
+    """The Horner's job table: built whole, its levels where the kernel
+    runs them, each level's jobs independent (none reads a slot the level
+    writes, no two write one slot: so the lanes may run them in any
+    order), at most 32 jobs a level (one pass of the warp); and the kernel
+    on c = 0 (the window sum's own level) and on edge representatives
+    (a coordinate's limbs at p - 1 or 1) with every slot below 2p."""
+    counts = np.zeros(6, dtype=np.int32)
+    assert harness.rh_horner_schedule(3 if curve == "g1" else 6,
+                                      counts.ctypes.data) == 0
+    assert 0 < counts.min() and counts.max() <= 32
+    gen = bn.G1_GEN if curve == "g1" else bn.G2_GEN
+    mul = bn.g1_mul if curve == "g1" else bn.g2_mul
+    rows = [_scaled(curve, p, k, t) for p, k, t in
+            [(mul(gen, 5), 0, P - 1), (None, 1, 1), (mul(gen, 7), 2, P - 1),
+             (mul(gen, 9), 1, 1)]]
+    rw = torch.from_numpy(_limbs([v for r in rows for v in r]).view(
+        np.int32)).reshape(4, -1, 8)
+    for c in (0, 2):
+        out = torch.zeros((1, rw.shape[1], 8), dtype=torch.int32)
+        assert harness.rh_horner(rw.shape[1], rw.data_ptr(), 4, c,
+                                 out.data_ptr()) == 0
+        assert torch.equal(out, tec.plain_horner(rw, c))
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_point_double(harness, curve):
+    """ec.cuh's pdbl (the doubling's schedule on one lane) limb for limb
+    against ops/ec.plain_point_double, and by affine value against bn254's
+    P + P: the identity, random subgroup points, and representatives with
+    a coordinate's limbs at p - 1 or 1."""
+    add = bn.g1_add if curve == "g1" else bn.g2_add
+    pts = [None] + _points_g(curve, 3, 600)
+    rows = [_proj(curve, p) for p in pts]
+    rows += [_scaled(curve, p, k, t) for p in pts for k in range(3)
+             for t in (P - 1, 1)]
+    a = _limbs([v for r in rows for v in r])
+    out = np.zeros_like(a)
+    na = 3 if curve == "g1" else 6
+    harness.rh_point_double(na, a.ctypes.data, out.ctypes.data, len(rows))
+    got = torch.from_numpy(out.view(np.int32)).reshape(len(rows), na, 8)
+    ta = torch.from_numpy(a.view(np.int32)).reshape(len(rows), na, 8)
+    assert torch.equal(got, tec.plain_point_double(ta))
+    vals = _ints(out)
+    assert max(vals) < P
+    aff = [_affine(curve, vals[na * i:na * (i + 1)]) for i in range(len(rows))]
+    want = [add(p, p) for p in pts]
+    assert aff == want + [w for w in want for _ in range(6)]
 
 
 def _points_g(curve, k, seed):

@@ -429,6 +429,50 @@ void dot_slab(int mix, const float* W, float* X) {
   }
 }
 
+// The Horner's lanes under g++, stepped in order (ec.cuh's hs::Lanes),
+// with a check at each level's end: every slot below 2p.
+struct CheckedLanes : hs::Lanes {
+  int over = 0;
+  template <class M>
+  void sync(const M& m) {
+    for (int i = 0; i < M::kSlots; ++i) {
+      const Fp1& x = m.s[i];
+      Fp1 d;
+      Carry k;
+      sub_cc(k, d.v[0], x.v[0], p2_limb(0));
+      for (int q = 1; q < 8; ++q) subc_cc(k, d.v[q], x.v[q], p2_limb(q));
+      if (!k.c) over = 1;                 // no borrow: x >= 2p
+    }
+  }
+};
+
+template <class E>
+int schedule_fault(int* counts) {
+  using namespace hs;
+  static Mem<E> m;
+  Expander<E> b{m.job, m.lev, m.out, 0, 0, true};
+  build(b);
+  if (!b.ok) return 1;
+  if (b.nl != kLevels) return 2;
+  const int slots = kVals * Sched<E>::NC;
+  for (int i = 0; i < kLevels; ++i) {
+    const Level& L = m.lev[i];
+    counts[i] = L.n;
+    std::vector<char> wr(slots, 0);
+    for (int j = 0; j < L.n; ++j) {
+      const Job& J = m.job[L.first + j];
+      if (J.out == 0 || J.out >= slots || wr[J.out]) return 3;
+      wr[J.out] = 1;
+    }
+    for (int j = 0; j < L.n; ++j) {
+      const Job& J = m.job[L.first + j];
+      for (int k = 0; k < 3; ++k)
+        if (wr[J.a.t[k]] || wr[J.b.t[k]]) return 4;
+    }
+  }
+  return 0;
+}
+
 extern "C" {
 
 // which: 0 = Fr, 1 = Fp.  Arrays are n rows of 8 uint32 limbs.
@@ -517,10 +561,38 @@ int rh_fp_lazy(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
 }
 
 // ec.cuh's horner (the kernel of zk_g1_horner / zk_g2_horner): W window
-// sums of na = 3 | 6 coordinates -> one point
-void rh_horner(int na, const uint32_t* rw, int W, int c, uint32_t* out) {
-  if (na == 3) store_point(out, horner<Fp1>(rw, W, c));
-  else store_point(out, horner<Fp2>(rw, W, c));
+// sums of na = 3 | 6 coordinates -> one point, the 32 lanes stepped in
+// order over one Mem.  Returns 0, or 1 if a slot held 2p or more at a
+// level's end.
+int rh_horner(int na, const uint32_t* rw, int W, int c, uint32_t* out) {
+  CheckedLanes ln;
+  if (na == 3) {
+    hs::Mem<Fp1> m;
+    horner<Fp1>(out, rw, W, c, m, ln);
+  } else {
+    hs::Mem<Fp2> m;
+    horner<Fp2>(out, rw, W, c, m, ln);
+  }
+  return ln.over;
+}
+
+// ec.cuh's pdbl on n points of na = 3 | 6 coordinates
+void rh_point_double(int na, const uint32_t* in, uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    if (na == 3)
+      store_point(out + 24 * i, pdbl(load_point<Fp1>(in + 24 * i)));
+    else
+      store_point(out + 48 * i, pdbl(load_point<Fp2>(in + 48 * i)));
+  }
+}
+
+// The Horner's job table for na = 3 | 6: 0 if it was built whole (every
+// sum within its leaves, six levels), no job of a level reading a slot
+// that the level writes, no two jobs writing one slot and none writing
+// slot 0; else a code naming the first fault.  counts (kLevels ints): the
+// jobs of each level.
+int rh_horner_schedule(int na, int* counts) {
+  return na == 3 ? schedule_fault<Fp1>(counts) : schedule_fault<Fp2>(counts);
 }
 
 void rh_g1_add(const uint32_t* a, const uint32_t* b, uint32_t* out, long n) {

@@ -20,9 +20,13 @@
 // thread holds only the formula's live values.  Output may alias either
 // input.
 //
-// The Horner kernel (zk_g1_horner / zk_g2_horner) is one thread: the
-// W (c + 1) adds are one dependent chain.  It replaces the MSM's loop of
-// one-point add launches (two Python calls and two launches per window).
+// The Horner kernel (zk_g1_horner / zk_g2_horner) is one launch of one
+// warp: its (W - 1) c doublings and W - 1 adds are one dependent chain, so
+// it runs ec.cuh's schedule of levels, each level's independent products
+// on their own lanes, with a dedicated doubling (two product levels a
+// doubling, two an add and one for b3 Z of its sum).  It replaces the
+// MSM's loop of one-point add launches (two Python calls and two launches
+// per window).
 #include <cuda_runtime.h>
 
 #include "ec.cuh"
@@ -99,16 +103,19 @@ int launch(void* out, const void* a, const void* b, long long n, int sb,
   return (int)cudaGetLastError();
 }
 
-// ec.cuh's horner on one thread
+// ec.cuh's horner on the lanes of one warp
 template <class E>
-__global__ void k_horner(uint32_t* out, const uint32_t* rw, int W, int c) {
-  store_point(out, ff::horner<E>(rw, W, c));
+__global__ void __launch_bounds__(32)
+k_horner(uint32_t* out, const uint32_t* rw, int W, int c) {
+  __shared__ hs::Mem<E> m;
+  hs::Lanes lanes;
+  ff::horner<E>(out, rw, W, c, m, lanes);
 }
 
 template <class E>
 int launch_horner(void* out, const void* rw, int W, int c, void* stream) {
-  if (W > 0)
-    k_horner<E><<<1, 1, 0, (cudaStream_t)stream>>>(
+  if (W > 0 && c >= 0)
+    k_horner<E><<<1, 32, 0, (cudaStream_t)stream>>>(
         (uint32_t*)out, (const uint32_t*)rw, W, c);
   return (int)cudaGetLastError();
 }

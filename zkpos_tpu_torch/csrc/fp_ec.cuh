@@ -364,11 +364,23 @@ FF_HD Fp1 mul_b3(const Fp1& a) {
   return ladd(ladd(a4, a4), a);
 }
 
+// 3b of each curve in Montgomery form: 9 (G1) and (81 - 9u)/82 (G2)
+FF_HD void b3_const(Fp1& k) {
+  k = fp_const(0x410d7ff7u, 0xf60647ceu, 0xd31bd011u, 0x2f3d6f4du,
+               0x3940c6d1u, 0x2943337eu, 0xa7e39857u, 0x1d9598e8u);
+}
+FF_HD void b3_const(Fp2& k) {
+  k.c0 = fp_const(0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
+                  0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u);
+  k.c1 = fp_const(0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
+                  0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au);
+}
+
 FF_HD Fp2 mul_b3(const Fp2& a) {
-  const Fp1 k0 = fp_const(0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
-                          0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u);
-  const Fp1 k1 = fp_const(0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
-                          0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au);
+  Fp2 k;
+  b3_const(k);
+  const Fp1& k0 = k.c0;
+  const Fp1& k1 = k.c1;
   const Fp1 ks = fp_const(0x2bc50b9fu, 0xe66258e3u, 0x8d208cb7u, 0x08f096cbu,
                           0x41614864u, 0x8964b0fbu, 0xe76460ddu, 0x123ae31bu);
   const Fp1 t0 = lmul(k0, a.c0);

@@ -1,8 +1,9 @@
 """G1 / G2 point arithmetic on tensors: the complete add (csrc/ec_add.cu),
-the MSM's Horner over its window sums in one launch (csrc/ec_add.cu,
-`horner`) and the inclusive segmented EC-sum scan (csrc/seg_scan.cu: every
-position, `seg_scan`, or each segment's sum, `seg_sums`), with their plain
-PyTorch versions.
+the dedicated doubling's plain version (`plain_point_double`, the formula
+of csrc/ec.cuh's pdbl), the MSM's Horner over its window sums in one
+launch of one warp (csrc/ec_add.cu, `horner`) and the inclusive
+segmented EC-sum scan (csrc/seg_scan.cu: every position, `seg_scan`, or
+each segment's sum, `seg_sums`), with their plain PyTorch versions.
 
 Counterpart of zkpos_tpu/ops/ec_pallas.py (point_add_pallas,
 point_add2_pallas, seg_scan_pallas).  A batch of points is an int32
@@ -104,10 +105,11 @@ def canonical(pts: torch.Tensor) -> List[torch.Tensor]:
 
 # --- plain versions -----------------------------------------------------------------
 #
-# The formula of csrc/ec.cuh on 16-bit limb rows, with each stage's
-# independent products stacked into one batched Montgomery product (six
-# variable products, then the two 3b products, then six more): the same
-# field operations, so the same canonical outputs.
+# The formulas of csrc/ec.cuh on 16-bit limb rows, with each stage's
+# independent products stacked into one batched Montgomery product (the
+# add: six variable products, then the two 3b products, then six more; the
+# doubling: four, the 3b product, four): the same field values, so the
+# same canonical outputs.
 
 def _b3_16(na: int, device) -> torch.Tensor:
     if na == 3:
@@ -177,22 +179,50 @@ def _padd16(E, p, q, b3):
     return X3, Y3, Z3
 
 
-def plain_point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a + b pointwise; b may be a single point."""
-    na = a.shape[1]
-    n = a.shape[0]
-    b = b.expand(n, na, 8)
-    A, B = F._to16(a), F._to16(b)                   # (N, na, 16)
+def _pdbl16(E, p, b3):
+    """The dedicated doubling on stacked coordinates, Renes-Costello-Batina
+    2015 Algorithm 9 (a = 0): X3 = 2 (Y^2 - 3 b3 Z^2) X Y, Y3 = 8 Y^2 b3
+    Z^2 + (Y^2 - 3 b3 Z^2)(Y^2 + b3 Z^2), Z3 = 8 Y^3 Z."""
+    X, Y, Z = p
+    t0, t1, t2, xy = E.mul(torch.stack([Y, Y, Z, X]),
+                           torch.stack([Y, Z, Z, Y]))
+    bz = E.mul(t2, b3)
+    y2, bz2 = E.add(torch.stack([t0, bz]), torch.stack([t0, bz]))
+    y4, bz3 = E.add(torch.stack([y2, bz2]), torch.stack([y2, bz]))
+    y8, v = E.add(torch.stack([y4, t0]), torch.stack([y4, bz]))
+    u = E.sub(t0, bz3)
+    m = E.mul(torch.stack([bz, t1, u, u]), torch.stack([y8, y8, v, xy]))
+    X3, Y3 = E.add(torch.stack([m[3], m[0]]), torch.stack([m[3], m[2]]))
+    return X3, Y3, m[1]
+
+
+def _on_points(fn, *pts):
+    """fn(E, coordinates of each operand, b3) on (N, na, 8) points, as
+    stacked 16-bit rows; the result back as (N, na, 8)."""
+    na = pts[0].shape[1]
+    P = [F._to16(t) for t in pts]                   # (N, na, 16)
     if na == 3:
-        E, split = _Base, lambda P: (P[:, 0], P[:, 1], P[:, 2])
+        E, split = _Base, lambda Q: (Q[:, 0], Q[:, 1], Q[:, 2])
     else:
-        E, split = _Quad, lambda P: (P[:, 0:2], P[:, 2:4], P[:, 4:6])
-    X3, Y3, Z3 = _padd16(E, split(A), split(B), _b3_16(na, a.device))
+        E, split = _Quad, lambda Q: (Q[:, 0:2], Q[:, 2:4], Q[:, 4:6])
+    X3, Y3, Z3 = fn(E, *[split(Q) for Q in P], _b3_16(na, pts[0].device))
     if na == 3:
         out = torch.stack([X3, Y3, Z3], dim=1)
     else:
         out = torch.cat([X3, Y3, Z3], dim=1)
     return F._from16(out)
+
+
+def plain_point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b pointwise; b may be a single point."""
+    return _on_points(_padd16, a, b.expand(a.shape[0], a.shape[1], 8))
+
+
+def plain_point_double(a: torch.Tensor) -> torch.Tensor:
+    """2 a pointwise by the dedicated doubling (Algorithm 9): the identity
+    to the identity, and the same projective point as csrc/ec.cuh's pdbl
+    and the Horner kernels' doublings."""
+    return _on_points(_pdbl16, a)
 
 
 # --- the add kernel ---------------------------------------------------------------
@@ -230,26 +260,37 @@ def point_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # --- the MSM's Horner ----------------------------------------------------------------
 
 def plain_horner(rw: torch.Tensor, c: int) -> torch.Tensor:
-    """sum_w 2^(c w) rw[w] by Horner through the complete add: acc =
-    rw[W - 1]; for w = W - 2 .. 0, c doublings (acc + acc), then acc +
-    rw[w].  Returns (1, na, 8)."""
+    """sum_w 2^(c w) rw[w] by Horner: acc = rw[W - 1]; for w = W - 2 .. 0,
+    c doublings (plain_point_double), then acc + rw[w] (the complete add).
+    Returns (1, na, 8)."""
     W = rw.shape[0]
     acc = rw[W - 1:W]
     for w in range(W - 2, -1, -1):
         for _ in range(c):
-            acc = plain_point_add(acc, acc)
+            acc = plain_point_double(acc)
         acc = plain_point_add(acc, rw[w:w + 1])
     return acc.contiguous()
 
 
+def horner_levels(W: int, c: int) -> int:
+    """Product levels on the Horner kernel's critical path (csrc/ec.cuh
+    horner): b3 Z of the first sum, then each window's doublings (two
+    levels each), its add (two) and b3 Z of the sum (one; not after the
+    last), and the window sum's own level when c = 0."""
+    return (W > 1) + (W - 1) * (2 * c + 2 + (c == 0)) + max(W - 2, 0)
+
+
 def horner(rw: torch.Tensor, c: int) -> torch.Tensor:
-    """plain_horner's adds, in its order, in one launch of one thread
-    (csrc/ec_add.cu zk_g1_horner / zk_g2_horner), counted as
+    """plain_horner's doublings and adds, in its order, in one launch of
+    one warp (csrc/ec_add.cu zk_g1_horner / zk_g2_horner: ec.cuh's
+    schedule of levels, a level's products on their own lanes), counted as
     g1_horner / g2_horner.  rw: (W, na, 8) window sums, W >= 1."""
     _check_pts(rw)
     W = rw.shape[0]
     if W == 0:
         raise ValueError("horner: no window sums")
+    if c < 0:
+        raise ValueError("horner: c must be at least 0")
     if rw.device.type == "cpu":
         return plain_horner(rw, c)
     if rw.device.type != "cuda":
@@ -263,7 +304,7 @@ def horner(rw: torch.Tensor, c: int) -> torch.Tensor:
     name = "g1_horner" if g1 else "g2_horner"
     build.check(fn(build.ptr(out), build.ptr(rw), W, c,
                    build.stream_ptr(rw)), name)
-    count_launch(name, (W - 1) * (c + 1))   # its adds
+    count_launch(name, (W - 1) * (c + 1))   # its doublings and adds
     return out
 
 

@@ -15,8 +15,9 @@ MSMs and the two commitment MSMs:
      reversed segmented scan over the bucket grid (ops/ec.seg_scan), T_0
      replaced by the identity, then each window's sum_{j >= 1} T_j
      (ops/ec.seg_sums, one segment a window);
-  4. a Horner over the W window sums with c doublings through the
-     complete add, in one launch (ops/ec.horner).
+  4. a Horner over the W window sums, c doublings (the dedicated
+     doubling) and an add a window, in one launch of one warp
+     (ops/ec.horner).
 
 `msm_point` returns the sum as a projective point on the device (what
 the sharded MSM gathers, parallel/mesh.py); `msm` reads it back as an
