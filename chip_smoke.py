@@ -78,7 +78,10 @@ Phases, in order; any failure exits non-zero:
      a chain's critical path;
  11. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
      probes in scripts/): instruction rates, the digit convolutions
-     (beside one conv1d call a round, their library yardstick), the
+     (beside one conv1d call a round, their library yardstick; the
+     grouped form's persistent kernel also at a column count that makes
+     each of its threads refill every stage of its ring and leaves its
+     last slab ragged), the
      Montgomery product's stages, the sparse Poseidon(2) ablations over
      the tree path's first level in the tree kernel's layout (their base
      beside that kernel), the seg-scan stages (the single pass's byte
@@ -1926,7 +1929,8 @@ ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "bound_ms", "bound_by", "library_ms", "ptxas", "counted_as",
             "adds", "bytes_ms", "ops_ms", "fixup_elements",
             "design_adds", "design_ops_ms", "tiles_per_chunk",
-            "check_tiles_per_chunk")
+            "check_tiles_per_chunk", "ragged_n", "ragged_walk",
+            "ragged_rel_err")
 
 
 def probe_row(r):
@@ -1942,9 +1946,15 @@ def probe_row(r):
     if (r["max_abs_err"] != 0 if tol is None else not
             r["max_rel_err"] <= tol):
         fail(f"{r['name']} disagrees with its plain version")
+    if "ragged_n" in r:
+        log(f"kernel {r['name']} at n={r['ragged_n']} (a ragged last slab; "
+            f"{r['ragged_blocks']} blocks, {r['ragged_walk'][0]}-"
+            f"{r['ragged_walk'][1]} columns a thread): "
+            f"max_rel_err={r['ragged_rel_err']:.3e} (tol {tol})")
     for k in ("full_equals_main_kernel", "cios_equals_reduce_of_product",
               "equals_seg_sums", "carries_equal_main_kernel",
-              "elements_equal_local", "check_spans_chunks"):
+              "elements_equal_local", "check_spans_chunks",
+              "ragged_within_tol", "ragged_refills_ring"):
         if r.get(k) is False:
             fail(f"{r['name']}: {k} is false")
     return {k: r[k] for k in ROW_KEYS if k in r}

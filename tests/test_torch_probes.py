@@ -45,6 +45,7 @@ from zkpos_tpu.ops import poseidon_f32_pallas as pk
 from zkpos_tpu_torch.ops import ec
 from zkpos_tpu_torch.ops import field as F
 from zkpos_tpu_torch import probes
+from zkpos_tpu_torch.probes import conv_variants as pcv
 from zkpos_tpu_torch.probes import debug_product as pprod
 from zkpos_tpu_torch.probes import dot_variants as pdv
 from zkpos_tpu_torch.probes import latency as platency
@@ -471,6 +472,37 @@ def test_dot_variants_sources(variant):
         with open(os.path.join(build.CSRC, f)) as g, \
                 open(os.path.join(out, f)) as h:
             assert g.read() == h.read()
+
+
+@pytest.mark.parametrize("variant", sorted(pcv.VARIANTS))
+def test_conv_variants_sources(variant):
+    """The grouped convolution's variants script's copies of csrc: each
+    substitution made where the script says (so a change that moves the
+    text fails here, not on the card), every other file unchanged."""
+    from zkpos_tpu_torch.utils import build
+    subs = pcv.VARIANTS[variant]
+    out = pcv.variant_sources("conv_variants", "test_" + variant, build.CSRC,
+                              subs)
+    for f in ("probes.cu", "probes.cuh", "seg_scan.cuh"):
+        with open(os.path.join(build.CSRC, f)) as g, \
+                open(os.path.join(out, f)) as h:
+            orig, text = g.read(), h.read()
+        mine = [(o, n) for g_, o, n in subs if g_ == f]
+        for old, new in mine:
+            assert new in text and old not in text.replace(new, "")
+        if not mine:
+            assert text == orig
+
+
+def test_conv_variants_column_digits():
+    """The digits the variants without loads make in the kernel (the C
+    expressions the script substitutes) are column_digits'."""
+    a, b = pcv.column_digits(300, "cpu")
+    for expr, want in ((pcv._DIGIT_A, a), (pcv._DIGIT_B, b)):
+        got = [[float(eval(expr.replace("(float)", ""), {"c": c, "i": i}))
+                for c in range(300)] for i in range(pconv.ND)]
+        assert torch.equal(torch.tensor(got), want)
+        assert want.min() >= 0 and want.max() <= 255
 
 
 @pytest.mark.parametrize("variant", ["nosync", "block64", "smem"])

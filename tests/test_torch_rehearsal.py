@@ -27,6 +27,7 @@ carries and their fix-up, chunk by chunk at a few lanes) against
 ops/field.plain_csr_eval.  Skips without g++."""
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -77,6 +78,9 @@ def harness(tmp_path_factory):
                          ctypes.c_longlong, V]
     L.rh_probe_rate.argtypes = [I, V, V, LG, I]
     L.rh_probe_conv.argtypes = [I, V, V, V, LG]
+    L.rh_probe_conv_ring.argtypes = [V, V, V, ctypes.c_longlong,
+                                     ctypes.c_longlong, V, V]
+    L.rh_probe_conv_ring.restype = ctypes.c_longlong
     L.rh_probe_product.argtypes = [I, V, V, V, LG]
     L.rh_probe_latency.argtypes = [V, V, V, LG, I]
     L.rh_probe_split.argtypes = [I, V, V, V, V, LG]
@@ -531,6 +535,52 @@ def test_probe_conv_forms(harness, form):
                           b.data_ptr(), out.data_ptr(), 12)
     torch.testing.assert_close(out, pconv.plain_rounds(form, a, b),
                                rtol=pconv.TOL, atol=0)
+
+
+# (columns, blocks resident): 3 slabs and 17 columns over 1, 2 and 3
+# blocks (a block walks several slabs, the last one ragged), a whole slab,
+# one column short of it, less than one slab, and probe_conv's ragged
+# check's shape over 2 blocks (every thread refills each stage)
+CONV_WALKS = [(3 * 128 + 17, 1), (3 * 128 + 17, 2), (3 * 128 + 17, 3),
+              (128, 5), (127, 1), (50, 4), (pconv.ring_check_n(2)[0], 2)]
+
+
+@pytest.mark.parametrize("n,resident", CONV_WALKS)
+def test_probe_conv_ring(harness, n, resident):
+    """k_conv_ring's walk (probes.cuh conv_walk: persistent blocks over
+    slabs of 128 columns, each thread's columns fetched ahead into its
+    slots of the ring): every output word written exactly once, no fetch
+    outside the inputs, each thread's columns as probe_conv.ring_walks
+    counts them, the grouped form's rounds within TOL."""
+    a, b = pconv.inputs(n, 40 + n, "cpu")
+    out = torch.full_like(a, float("nan"))
+    writes = torch.zeros((pconv.ND, n), dtype=torch.int32)
+    blocks = min(resident, -(-n // pconv.SLAB))
+    walks = torch.full((blocks * pconv.SLAB,), -1, dtype=torch.int32)
+    stray = harness.rh_probe_conv_ring(a.data_ptr(), b.data_ptr(),
+                                       out.data_ptr(), n, resident,
+                                       writes.data_ptr(), walks.data_ptr())
+    assert stray == 0
+    assert torch.equal(writes, torch.ones_like(writes))
+    assert (int(walks.min()), int(walks.max())) == pconv.ring_walks(n, blocks)
+    torch.testing.assert_close(out, pconv.plain_rounds("grouped", a, b),
+                               rtol=pconv.TOL, atol=0)
+
+
+def test_probe_conv_ring_constants():
+    """probe_conv's copy of k_conv_ring's slab and ring (the ragged check's
+    size and walks) is the header's; that check's shape makes every thread
+    walk past its ring's stages, its last slab ragged."""
+    with open(os.path.join(CSRC, "probes.cuh")) as f:
+        text = f.read()
+    for name, want in (("kConvSlab", pconv.SLAB),
+                       ("kConvStages", pconv.STAGES)):
+        assert re.search(rf"const int {name} = (\d+);", text).group(1) \
+            == str(want)
+    for resident in (1, 3, 396):
+        n, blocks = pconv.ring_check_n(resident)
+        assert blocks == resident and n % pconv.SLAB != 0
+        assert pconv.ring_walks(n, blocks)[0] >= pconv.STAGES + 1
 
 
 def test_probe_product_stages(harness):

@@ -397,6 +397,39 @@ int csr_host(int lanes, int K, const csr::Terms& m, long long nrows,
   return 0;
 }
 
+// probes.cuh conv_walk's memory under g++: the fetch a plain copy, which
+// counts each read outside the inputs' (34, n) planes; each store counted
+// by the output word it writes.
+struct HostConvMem {
+  static const float* a;
+  static const float* b;
+  static long long words;     // 34 n
+  static const float* out;
+  static int* writes;         // 34 n counts
+  static long long puts;      // stores in all
+  static long long stray;     // fetches outside a and b
+  static void fetch(float* dst, const float* src) {
+    if (!((src >= a && src < a + words) || (src >= b && src < b + words)))
+      ++stray;
+    *dst = *src;
+  }
+  static void commit() {}
+  template <int N>
+  static void wait() {}
+  static void put(float* p, float v) {
+    ++writes[p - out];
+    ++puts;
+    *p = v;
+  }
+};
+const float* HostConvMem::a;
+const float* HostConvMem::b;
+long long HostConvMem::words;
+const float* HostConvMem::out;
+int* HostConvMem::writes;
+long long HostConvMem::puts;
+long long HostConvMem::stray;
+
 }  // namespace
 
 // The FFMA route of the weights-first product over one slab of 64
@@ -693,6 +726,38 @@ void rh_probe_conv(int form, const float* a, const float* b, float* out,
     else probe::conv_rounds<2>(x, bb);
     for (int i = 0; i < probe::kDigits; ++i) out[i * n + c] = x[i];
   }
+}
+
+// k_conv_ring (the grouped form's persistent walk, probes.cuh conv_walk)
+// with `resident` blocks resident at once: every block's threads, one
+// after another (a thread reads only its own slots, so the order does not
+// matter), each over its own walk with the kernel's ring.
+// writes: 34 n counts of the stores to each output word; walks: the
+// columns each thread of the launch computed (blk * kConvSlab + t, for
+// the blocks conv_blocks gives); returns the fetches that read outside a
+// and b.
+long long rh_probe_conv_ring(const float* a, const float* b, float* out,
+                             long long n, long long resident, int* writes,
+                             int* walks) {
+  HostConvMem::a = a;
+  HostConvMem::b = b;
+  HostConvMem::words = probe::kDigits * n;
+  HostConvMem::out = out;
+  HostConvMem::writes = writes;
+  HostConvMem::puts = 0;
+  HostConvMem::stray = 0;
+  const long long blocks = probe::conv_blocks(n, resident);
+  std::vector<float> ring(probe::kConvStages * probe::kConvRows *
+                          probe::kConvSlab);
+  for (long long blk = 0; blk < blocks; ++blk)
+    for (int t = 0; t < probe::kConvSlab; ++t) {
+      const long long before = HostConvMem::puts;
+      probe::conv_walk<HostConvMem>(out, a, b, n, blk, blocks, t,
+                                    ring.data());
+      walks[blk * probe::kConvSlab + t] =
+          (int)((HostConvMem::puts - before) / probe::kDigits);
+    }
+  return HostConvMem::stray;
 }
 
 // as zk_probe_latency, one row after another

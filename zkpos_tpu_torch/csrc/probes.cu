@@ -10,7 +10,9 @@
 //     dependent steps per element (enough elements to fill every SM);
 //     bounded by the class's data-sheet rate;
 //   * k_conv: the 34-digit f32 convolution, one thread per column with its
-//     digits in registers; bounded by FP32 FMAs;
+//     digits in registers; bounded by FP32 FMAs.  The grouped form runs
+//     k_conv_ring: persistent blocks, each thread's next columns streamed
+//     into its shared-memory slots by cp.async while it computes;
 //   * k_prod / k_redc / k_cios: the Montgomery product's stages apart and
 //     fused; bounded by 32-bit multiplies;
 //   * k_latency: the fused product's latency, dependent products on one
@@ -97,6 +99,86 @@ __global__ void k_conv(float* out, const float* a, const float* b,
   probe::conv_rounds<FORM>(x, bb);
 #pragma unroll
   for (int i = 0; i < probe::kDigits; ++i) out[i * n + c] = x[i];
+}
+
+// The grouped form (probes.cuh conv_grouped, conv_walk) in persistent
+// blocks of kConvSlab threads.  Bound: the FP32 pipe (1,156 FMAs a round
+// and the fold).  Its products go straight into the coefficients, and
+// where k_conv's thread loads its 68 digits before its first FMA, here
+// each thread fetches its next column's digits by 4-byte cp.async into
+// its own slots of a ring of kConvStages stages in shared memory while
+// its current column runs from registers, so the copy (408 bytes a
+// column) overlaps the rounds.  4 bytes a copy, so any n (a digit row
+// starts n words after the last; a 16-byte copy would need n a multiple
+// of 4), and a warp still moves a 128-byte line a copy.  Two stages
+// (probe::kConvStages; 69,632 bytes a block) hold three blocks an SM (12
+// warps, up to 168 registers a thread).  What is left between the rounds
+// and the pipe's rate is the compiler's schedule: an FFMA whose three
+// sources all come from the register file, two of one parity, costs an
+// issue cycle more (probes/conv_variants.py splits the time and reads the
+// SASS).
+const int kConvSmem =
+    4 * probe::kConvStages * probe::kConvRows * probe::kConvSlab;
+
+// conv_walk's memory on the card: 4-byte cp.async into the thread's own
+// slots (only the thread itself waits for them), plain stores out
+struct ConvAsync {
+  static FF_HD void fetch(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(s), "l"(src) : "memory");
+#endif
+  }
+  static FF_HD void commit() {
+#if defined(__CUDA_ARCH__)
+    scan::cp_commit();
+#endif
+  }
+  template <int N>
+  static FF_HD void wait() {
+#if defined(__CUDA_ARCH__)
+    scan::cp_wait<N>();
+#endif
+  }
+  static FF_HD void put(float* p, float v) { *p = v; }
+};
+
+__global__ void __launch_bounds__(probe::kConvSlab, 3)
+k_conv_ring(float* out, const float* a, const float* b, long long n) {
+  extern __shared__ float4 conv_smem[];
+  probe::conv_walk<ConvAsync>(out, a, b, n, blockIdx.x, gridDim.x,
+                              threadIdx.x,
+                              reinterpret_cast<float*>(conv_smem));
+}
+
+// k_conv_ring's blocks resident at once on the current device, which is
+// the launch's (a stream of another device fails the launch), found at
+// the device's first launch: its shared memory allowed, the occupancy
+// asked, then kept.
+long long conv_resident() {
+  static long long resident[64];    // by device; 0 until found
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(k_conv_ring,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kConvSmem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k_conv_ring, probe::kConvSlab, kConvSmem);
+    resident[dev] = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  }
+  return resident[dev];
+}
+
+int launch_conv_ring(float* out, const float* a, const float* b, long long n,
+                     cudaStream_t stream) {
+  const long long blocks = probe::conv_blocks(n, conv_resident());
+  k_conv_ring<<<(unsigned)blocks, probe::kConvSlab, kConvSmem, stream>>>(
+      out, a, b, n);
+  return (int)cudaGetLastError();
 }
 
 // --- the product's stages (Fr, rows of 8 or 16 limbs) -------------------------
@@ -517,12 +599,16 @@ int zk_probe_conv(int form, void* out, const void* a, const void* b,
   const float* pb = (const float*)b;
   switch (form) {
     case 0: k_conv<0><<<g, kBlock, 0, s>>>((float*)out, pa, pb, n); break;
-    case 1: k_conv<1><<<g, kBlock, 0, s>>>((float*)out, pa, pb, n); break;
+    case 1: return launch_conv_ring((float*)out, pa, pb, n, s);
     case 2: k_conv<2><<<g, kBlock, 0, s>>>((float*)out, pa, pb, n); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
+
+// the blocks resident at once that a launch of the grouped form
+// (k_conv_ring) on the current device spreads its slabs over
+long long zk_probe_conv_resident() { return conv_resident(); }
 
 // stage: 0 product (a, b -> 16 limbs), 1 reduction (a: 16 limbs -> 8),
 // 2 CIOS product (a, b -> 8 limbs); Fr

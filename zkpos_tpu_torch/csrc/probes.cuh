@@ -9,7 +9,8 @@
 //     scripts/micro_probe3.py:69-102), plus the field core's 64-bit wide
 //     multiply-add (field.cuh:127);
 //   * the 34-digit f32 convolution in three forms with the probe's fold
-//     (scripts/probe_conv.py:27-71);
+//     (scripts/probe_conv.py:27-71), and the grouped form's walk of a
+//     persistent block over slabs of columns;
 //   * the Montgomery product split into its stages: 8 x 8-limb schoolbook
 //     product, reduction of 16 limbs to 8, and the CIOS product without
 //     its final subtraction (scripts/debug_f32p.py:38,73);
@@ -131,24 +132,22 @@ FF_HD void conv_padloop(float* c, const float* a, const float* b) {
   }
 }
 
-// the same products summed by residue class of i mod 8 (conv_grouped, :35):
-// s_r = sum_q shift_8q(a[8q + r] * b), then c = sum_r shift_r(s_r)
+// the same products grouped by residue class r = i mod 8, as the TPU's
+// conv_grouped (:35) groups them: r, then q, then j, each product
+// a[8q + r] * b[j] FMA'd straight into c[8q + r + j].  The TPU summed each
+// class into a partial sum of its own and merged the eight shifted by r,
+// which turned its 34 misaligned sublane shifts into 8; here a shift is a
+// register's name, and the merge would only add its 414 adds a round.
 FF_HD void conv_grouped(float* c, const float* a, const float* b) {
   FF_UNROLL
   for (int k = 0; k < kCoeffs; ++k) c[k] = 0.0f;
   FF_UNROLL
-  for (int r = 0; r < 8; ++r) {
-    float s[kCoeffs];
+  for (int r = 0; r < 8; ++r)
     FF_UNROLL
-    for (int k = 0; k < kCoeffs; ++k) s[k] = 0.0f;
-    FF_UNROLL
-    for (int q = 0; 8 * q + r < kDigits; ++q) {
+    for (int q = 0; 8 * q + r < kDigits; ++q)
       FF_UNROLL
-      for (int j = 0; j < kDigits; ++j) s[8 * q + j] += a[8 * q + r] * b[j];
-    }
-    FF_UNROLL
-    for (int k = 0; k + r < kCoeffs; ++k) c[k + r] += s[k];
-  }
+      for (int j = 0; j < kDigits; ++j)
+        c[8 * q + r + j] += a[8 * q + r] * b[j];
 }
 
 // c = a * a from the products with i <= j, the off-diagonal ones doubled
@@ -184,6 +183,91 @@ FF_HD void conv_rounds(float* x, const float* b) {
     else conv_triangle(c, x);
     conv_fold(x, c, b);
   }
+}
+
+// --- the grouped form's persistent walk (probes.cu k_conv_ring) -----------
+//
+// A block of kConvSlab threads, one a column, walks the slabs of kConvSlab
+// columns blk, blk + blocks, blk + 2 blocks, ... (persistent blocks: as
+// many as the card holds at once, no more than the slabs).  Thread t's
+// k-th column is conv_column(blk, blocks, t, k); its columns grow with k,
+// so its walk ends at its first column at or past n, in the last slab (a
+// ragged one ends some threads' walks there) or after it.  Each thread
+// owns its slots of the block's ring of kConvStages stages in shared
+// memory (row i of thread t at i * kConvSlab + t, so a warp reads 32
+// neighbouring words) and fetches its own columns' 68 digits into them,
+// kConvStages - 1 columns ahead, through the Mem policy: 4-byte cp.async on the card, a plain
+// copy under g++.  No other thread reads a thread's slots, so no barrier
+// is needed; a column's 8 rounds run from registers while the thread's
+// next columns load, and its 34 outputs leave from registers (a block's
+// row of a digit is 512 contiguous bytes).
+
+const int kConvSlab = 128;           // columns a slab: a block's threads
+const int kConvRows = 2 * kDigits;   // a stage's rows: a's digits, b's
+const int kConvStages = 2;           // the ring's stages
+
+// the blocks of a launch: those resident at once, no more than the slabs
+FF_HD long long conv_blocks(long long n, long long resident) {
+  const long long slabs = (n + kConvSlab - 1) / kConvSlab;
+  return resident < slabs ? resident : slabs;
+}
+
+FF_HD long long conv_column(long long blk, long long blocks, int t,
+                            long long k) {
+  return (blk + k * blocks) * kConvSlab + t;
+}
+
+// column c's digits into its slots (row i at slot[i * kConvSlab]) when c
+// < n; then the group is committed (empty past n)
+template <class Mem>
+FF_HD void conv_fetch(float* slot, const float* a, const float* b,
+                      long long n, long long c) {
+  if (c < n) {
+    const float* pa = a + c;
+    const float* pb = b + c;
+    FF_UNROLL
+    for (int i = 0; i < kDigits; ++i, pa += n, pb += n) {
+      Mem::fetch(slot + i * kConvSlab, pa);
+      Mem::fetch(slot + (kDigits + i) * kConvSlab, pb);
+    }
+  }
+  Mem::commit();
+}
+
+// Thread t of block blk: its walk over the block's ring of NS =
+// kConvStages stages.  Column k
+// sits in stage k % NS; column k + NS - 1 is fetched into the stage that
+// column k - 1 was read from, whose digits the rounds have consumed.
+template <class Mem>
+FF_HD void conv_walk(float* out, const float* a, const float* b,
+                     long long n, long long blk, long long blocks, int t,
+                     float* ring) {
+  const int NS = kConvStages, stage = kConvRows * kConvSlab;
+  float* mine = ring + t;
+  for (int k = 0; k < NS - 1; ++k)
+    conv_fetch<Mem>(mine + k * stage, a, b, n,
+                    conv_column(blk, blocks, t, k));
+  int cur = 0;
+  for (long long k = 0;; ++k) {
+    const long long c = conv_column(blk, blocks, t, k);
+    if (c >= n) break;
+    conv_fetch<Mem>(mine + (cur == 0 ? NS - 1 : cur - 1) * stage, a, b, n,
+                    conv_column(blk, blocks, t, k + NS - 1));
+    Mem::template wait<NS - 1>();
+    const float* s = mine + cur * stage;
+    float x[kDigits], bb[kDigits];
+    FF_UNROLL
+    for (int i = 0; i < kDigits; ++i) {
+      x[i] = s[i * kConvSlab];
+      bb[i] = s[(kDigits + i) * kConvSlab];
+    }
+    conv_rounds<1>(x, bb);
+    float* po = out + c;
+    FF_UNROLL
+    for (int i = 0; i < kDigits; ++i, po += n) Mem::put(po, x[i]);
+    cur = cur + 1 == NS ? 0 : cur + 1;
+  }
+  Mem::template wait<0>();
 }
 
 // --- the Montgomery product in stages (R = 2^256) ---------------------------

@@ -9,13 +9,21 @@ b``) so that the rounds depend on each other.  ``padloop`` and ``grouped``
 are the full 34 x 34 products summed in two orders; ``triangle`` is the
 squaring from the products with i <= j.
 
-On this card ``k_conv`` (csrc/probes.cu) runs one thread per column with
-its 34 digits, its 34 operand digits and its 67 coefficients in registers;
-the planes are (34, n) with a column's digit i at i * n + c, so a warp
-reads 32 neighbouring words per digit.  Bound: FP32 FMAs at 128 per SM per
-clock (1,156 a product, 595 a squaring, plus the fold's 68); the TPU chose
-digits in f32 because its f32 FMA outran its u32 multiply, and this probe
-measures the same trade here.
+On this card each form runs one thread per column with its 34 digits, its
+34 operand digits and its 67 coefficients in registers; the planes are
+(34, n) with a column's digit i at i * n + c, so a warp reads 32
+neighbouring words per digit.  Padloop and triangle run ``k_conv``
+(csrc/probes.cu), a block a slab of 128 columns.  Grouped runs
+``k_conv_ring``: its products FMA'd straight into the coefficients, class
+by class (no merge of partial sums), in persistent blocks whose threads
+fetch their next column's digits into shared memory by cp.async while
+the current column's rounds run (csrc/probes.cuh conv_walk).  Bound: FP32
+FMAs at 128 per SM per clock (1,156 a product, 595 a squaring, plus the
+fold's 68); the TPU chose digits in f32 because its f32 FMA outran its u32
+multiply, and this probe measures the same trade here.  The forms stay on
+the FP32 pipe: TF32 tensor cores keep 10 bits of mantissa, about 1e-3
+relative after the first fold against TOL, and a column's product shares
+no operand with another column's, so a matrix unit would find no reuse.
 
 Library yardstick: one PyTorch call computes each round's convolution,
 ``torch.nn.functional.conv1d`` with a group a column and the column's
@@ -38,7 +46,18 @@ ND, NC = 34, 67
 REPS = 8
 N = 1 << 22           # columns
 CHECK_N = 1 << 16     # columns the plain version checks
+# k_conv_ring's columns a slab and its ring's stages (csrc/probes.cuh
+# kConvSlab, kConvStages)
+SLAB, STAGES = 128, 2
+# grouped's second check: RING_WALK slabs for each block the card holds at
+# once, so that every thread walks RING_WALK columns or more and refills
+# each stage of its ring (the first refill comes at a thread's column
+# STAGES + 1), and RAGGED more (a ragged last slab; n not a multiple of 4)
+RING_WALK, RAGGED = STAGES + 2, 37
 FORMS = ("padloop", "grouped", "triangle")
+# each form's kernel, as ptxas names it
+KERNELS = {"padloop": "k_convILi0E", "grouped": "k_conv_ring",
+           "triangle": "k_convILi2E"}
 REPLACES = "scripts/probe_conv.py:65"
 # FMAs of one convolution (products) in each form
 FMAS = {"padloop": ND * ND, "grouped": ND * ND, "triangle": ND * (ND + 1) // 2}
@@ -134,6 +153,21 @@ def conv_rounds(form: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def ring_walks(n: int, blocks: int) -> tuple[int, int]:
+    """(least, most) columns a thread of k_conv_ring walks when `blocks`
+    blocks share n columns: global thread g = blk * SLAB + t walks columns
+    g, g + blocks * SLAB, ... below n."""
+    q, rem = divmod(n, blocks * SLAB)
+    return q, q + (rem > 0)
+
+
+def ring_check_n(resident: int) -> tuple[int, int]:
+    """grouped's second check's columns and the blocks k_conv_ring spreads
+    them over, `resident` blocks fitting on the card at once."""
+    n = RING_WALK * resident * SLAB + RAGGED
+    return n, min(resident, -(-n // SLAB))
+
+
 def inputs(n: int, seed: int, device):
     """Digits below 256, as the TPU probe made them."""
     rng = np.random.default_rng(seed)
@@ -161,6 +195,10 @@ def run(device=None, log=print):
             torch.backends.cudnn.allow_tf32 = saved
         lib["padloop"] = lib["grouped"]
 
+    # k_conv_ring's blocks resident at once (one slab a block on the CPU)
+    resident = (int(build.cuda_lib().zk_probe_conv_resident())
+                if dev.type == "cuda" else 1)
+
     def check():
         ac, bc = a[:, :CHECK_N].contiguous(), b[:, :CHECK_N].contiguous()
         rows = []
@@ -180,6 +218,16 @@ def run(device=None, log=print):
                     torch.backends.cudnn.allow_tf32 = saved
                 extra["library"] = ("torch.nn.functional.conv1d, groups=N, "
                                     "cudnn.allow_tf32=False")
+            if form == "grouped":
+                rn, blocks = ring_check_n(resident)
+                ar, br = a[:, :rn].contiguous(), b[:, :rn].contiguous()
+                rag = C.max_rel_err(conv_rounds(form, ar, br),
+                                    plain_rounds(form, ar, br))
+                least, most = ring_walks(rn, blocks)
+                extra.update(ragged_n=rn, ragged_blocks=blocks,
+                             ragged_walk=[least, most],
+                             ragged_rel_err=rag, ragged_within_tol=rag <= TOL,
+                             ragged_refills_ring=least >= STAGES + 1)
             r = C.row(f"conv_{form}", REPLACES, N, ms, plain_ms, CHECK_N,
                       3 * ND * 4 * N, fmas / C.FP32_FMA_PER_S,
                       C.max_abs_err(k, p), rel_err=C.max_rel_err(k, p),
@@ -188,9 +236,10 @@ def run(device=None, log=print):
                       gfma_per_s=round(fmas / ms / 1e6, 3),
                       share_of_fp32_peak=round(fmas / ms / 1e-3
                                                / C.FP32_FMA_PER_S, 4),
-                      registers=C.kernel_resources(
-                          f"k_convILi{FORMS.index(form)}E"),
+                      registers=C.kernel_resources(KERNELS[form]),
                       device=dev.type)
+            r["ok"] = (r["ok"] and r.get("ragged_within_tol", True)
+                       and r.get("ragged_refills_ring", True))
             log(f"probe conv_{form}: {r['mconv_per_s']} M conv/s, "
                 f"{r['gfma_per_s']} G FMA/s, rel err {r['max_rel_err']:.2e}")
             rows.append(r)

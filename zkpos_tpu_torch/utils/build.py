@@ -158,6 +158,8 @@ def cuda_lib() -> ctypes.CDLL:
                 fn.restype = LL
             L.zk_probe_stage_tpc.argtypes = [I, I, LL]
             L.zk_probe_stage_tpc.restype = LL
+            L.zk_probe_conv_resident.argtypes = []
+            L.zk_probe_conv_resident.restype = LL
             _cuda_lib = L
     return _cuda_lib
 
