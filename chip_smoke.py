@@ -19,7 +19,8 @@ Phases, in order; any failure exits non-zero:
      MSM);
   5. every kernel of the prove path held against its plain PyTorch version
      on the card at the largest shape the path launched it with: the Fr/Fp
-     kernels and one NTT over the 2^21 domain, the QAP row evaluation of
+     kernels (ff_pow's plain version on 2^18 of its elements) and one NTT
+     over the 2^21 domain, the QAP row evaluation of
      the path's A, B and C matrices at its witness (and of three CSRs that
      stress it: A's rows of 8,192 terms or more alone, one row of 2^20
      terms, 2^21 rows with no term), G1/G2 adds over as many pairs as
@@ -29,12 +30,24 @@ Phases, in order; any failure exits non-zero:
      the host oracle; then the one-point add loop the MSM ran before
      against one launch, by canonical value, in turns), and the
      segmented scan and segment sums over the path's own MSM streams (the
-     30.8 M-point G1 witness stream in full; the 33.6 M-point G1 H stream
-     and the 42.3 M-point G2 stream on head-aligned slices), and over
+     30.8 M-point G1 witness stream, the 33.6 M-point G1 H stream and the
+     42.3 M-point G2 stream, each on head-aligned slices), and over
      streams of one segment and of all heads (2^22 G2, 2^24 G1 points);
      each kernel timed with CUDA events beside its plain version and its
      bound (the work its inputs need);
-  6. the pipeline path: the service entry points at the prove path's size
+  6. the memory path: prove #2's system and keys proved twice more with
+     its r and s, the MSM streams in chunks of 2^21 entries
+     (ZKPOS_MSM_CHUNK, the JAX package's default: 15 or more chunks a G1
+     MSM, 30 the G2 one), then also with a key budget of 0 (every base in
+     pinned host memory, copied to the card for its MSM and freed after
+     it), each proof byte for byte prove #2's and verified, with its
+     seconds, peak bytes by stage, chunks and launches; then MSMs of 2^26
+     points, G1 at c = 16 and G2 at c = 12, whose one-pass streams would
+     need 103 GB and 283 GB: bases (a + i b) G made on the card as the
+     prefix sum of [aG, bG, bG, ...], scalars c + i d mod r by the field
+     kernels, a, b, c, d from a fixed seed, each sum against its closed
+     form (one host scalar multiplication), its peak below 80 GB;
+  7. the pipeline path: the service entry points at the prove path's size
      (universe 100, tier 50:16, depth 28), as an operator runs them: a
      seeded CEX table and user files from the sample_data CLI (each user
      holds 30 tokens; the ingest must count the invalid rows exactly), the
@@ -45,12 +58,12 @@ Phases, in order; any failure exits non-zero:
      in subprocesses: on the proof CSV and sampled user proofs (exit 0),
      and on a changed proof byte, a missing row and a changed user total
      (exit non-zero);
-  7. the tree path: a depth-28 account tree over 2^27 random leaves made
+  8. the tree path: a depth-28 account tree over 2^27 random leaves made
      on the card, built level by level with the sparse Poseidon kernel,
      its whole first level held against the plain-schedule kernel, 64
      nodes of every level against the host Poseidon of their children,
      and 16 inclusion proofs (and a changed leaf that must fail);
-  8. the mesh path (zkpos_tpu_torch/parallel/mesh.py): graft.entry()'s
+  9. the mesh path (zkpos_tpu_torch/parallel/mesh.py): graft.entry()'s
      node hash once against its plain version, then ranks started by
      torch.multiprocessing.spawn, at one rank over nccl and at two and
      four ranks that share the card over gloo, each rank on its contiguous
@@ -61,22 +74,22 @@ Phases, in order; any failure exits non-zero:
      against the single-process msm_device.msm_point on the same inputs
      by affine value; the ranks report their launch counts and each
      step's seconds;
-  9. the witness-service path at the reference's production constants
+ 10. the witness-service path at the reference's production constants
      (500 assets, 12 tiers, depth 28, tiers 500:200 and 50:1380) over
      SERVICE_ACCOUNTS seeded accounts: prepare, run_witness,
      run_userproof on sqlite, a second run that writes nothing, and 256
      sampled userproof rows verified against the root and the host leaf
      hash;
- 10. every Poseidon kernel held against its plain version, bit for bit,
-     on a slice of the inputs of its largest launch on paths 4, 6, 7 and 9,
+ 11. every Poseidon kernel held against its plain version, bit for bit,
+     on a slice of the inputs of its largest launch on paths 4, 7, 8 and 10,
      and timed on the whole of them: the tree's kernel, the one-thread
      sparse permutation at each width the paths ran (against the plain
-     schedule; with its ptxas figures, and the warp-a-chain kernel on the
+     sparse schedule and the plain schedule; with its ptxas figures, and the warp-a-chain kernel on the
      largest leaf-commitment input beside the per-block chain), and the
      chain kernel on the service path's batched launch (every chain
      against the per-block kernel) and on one chain, with the products on
      a chain's critical path;
- 11. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
+ 12. the probes path (zkpos_tpu_torch/probes, the counterparts of the TPU
      probes in scripts/): instruction rates, the digit convolutions
      (beside one conv1d call a round, their library yardstick; the
      grouped form's persistent kernel also at a column count that makes
@@ -182,6 +195,11 @@ PATH_KERNELS = {
     # the sharded root, point fold, double-and-add and stream MSMs
     "mesh": ("poseidon_sparse3", "seg_sums_g1", "seg_sums_g2", "g1_add",
              "g1_horner", "g2_horner"),
+    # the proves in chunks (the carries' adds) and the 2^26-point MSMs
+    # (their bases a prefix sum, their scalars the field kernels)
+    "memory": ("seg_sums_g1", "seg_sums_g2", "seg_scan_g1", "seg_scan_g2",
+               "g1_add", "g2_add", "g1_horner", "g2_horner", "ff_mul",
+               "ff_add"),
 }
 # the probes path's kernels (PATH_KERNELS["probes"], one per probe variant)
 # are filled in by main from the probes package; the path's time budget
@@ -371,6 +389,175 @@ def phase_msm_oracle():
         fail("msm of zero scalars is not the identity")
 
 
+# --- MSMs of 2^26 points: inputs made on the card, a closed-form oracle ------
+
+BIG_MSM_LOG = 26
+BIG_MSM_C = (("g1", 16), ("g2", 12))
+
+
+def progression_seeds(curve):
+    """a, b, c, d for the curve's progression MSM, from a fixed seed."""
+    from zkpos_tpu_torch.crypto import bn254 as bn
+    rpy = random.Random(f"progression-{curve}")
+    return tuple(rpy.randrange(1, bn.R) for _ in range(4))
+
+
+def progression_inputs(curve, n, a, b, c, d, device="cuda"):
+    """An MSM's inputs made on `device`: bases P_i = (a + i b) G as the
+    prefix sum (ec.seg_scan, one segment) of the stream [aG, bG, bG, ...],
+    and scalars s_i = c + i d mod r as ff_mul of i (standard form) by d
+    (Montgomery form), which gives i d in standard form, then ff_add of c.
+    Returns ((n, na, 8) bases, (n, 8) standard-form scalars)."""
+    import torch
+    from zkpos_tpu_torch.crypto import bn254 as bn
+    from zkpos_tpu_torch.ops import ec, field as F
+    g, mul = (bn.G1_GEN, bn.g1_mul) if curve == "g1" else \
+        (bn.G2_GEN, bn.g2_mul)
+    ab = ec.from_affine([mul(g, a), mul(g, b)], curve, device)
+    stream = ab[1:].expand(n, ab.shape[1], 8).contiguous()
+    stream[0] = ab[0]
+    heads = torch.zeros(n, dtype=torch.bool, device=device)
+    heads[0] = True
+    base = ec.seg_scan(stream, heads)
+    del stream
+    i = torch.zeros((n, 8), dtype=torch.int32, device=device)
+    i[:, 0] = torch.arange(n, dtype=torch.int32, device=device)
+    sc = F.add(F.mul(i, F.const(d, F.FR, device)),
+               F.const(c, F.FR, device, mont=False))
+    return base, sc
+
+
+def progression_msm_scalar(n, a, b, c, d):
+    """k with sum_{i < n} (c + i d)(a + i b) G = k G: n a c + (a d + b c)
+    n (n - 1) / 2 + b d (n - 1) n (2 n - 1) / 6 mod r."""
+    from zkpos_tpu_torch.crypto import bn254 as bn
+    s1 = n * (n - 1) // 2
+    s2 = (n - 1) * n * (2 * n - 1) // 6
+    return (n * a * c + (a * d + b * c) * s1 + b * d * s2) % bn.R
+
+
+FORCED_CHUNK = 1 << 21     # stream entries a chunk on the memory path
+
+
+def forced_prove(scs, pk, prove2, budget):
+    """Prove #2's system and keys proved again with its r and s, the
+    streams in chunks of 2^21 entries (ZKPOS_MSM_CHUNK, the JAX package's
+    default) and, with a budget, the key's bases placed for it (0: every
+    base in pinned host memory, copied to the card for its MSM); the
+    default placement is restored after.  Returns its JSON record."""
+    import torch
+    from zkpos_tpu_torch.groth16 import groth16 as g16, serialize
+    from zkpos_tpu_torch.ops import field as F
+    os.environ["ZKPOS_MSM_CHUNK"] = str(FORCED_CHUNK)
+    try:
+        if budget is not None:
+            g16.place_bases(pk, budget)
+        streamed = sorted(pk.streamed)
+        before = Counter(F.LAUNCHES)
+        spans = {}
+        r_s = iter(prove2["r_s"])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        proof = g16.prove(scs, pk, rng=lambda: next(r_s), spans=spans)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    finally:
+        del os.environ["ZKPOS_MSM_CHUNK"]
+        if budget is not None:
+            g16.place_bases(pk)
+    launches = Counter(F.LAUNCHES) - before
+    same = (serialize.proof_to_bytes(proof)
+            == serialize.proof_to_bytes(prove2["proof"]))
+    ok = g16.verify(proof, prove2["vk"], prove2["public"])
+    return {"seconds": round(seconds, 4), "streamed": streamed,
+            "peak_bytes": max(spans.get("peak_bytes", {}).values(),
+                              default=None),
+            "stage_peak_bytes": spans.get("peak_bytes"),
+            "stage_seconds": {k: round(v, 4) for k, v in spans.items()
+                              if isinstance(v, float)},
+            "chunks": spans["chunks"],
+            "launches": {k: launches[k] for k in (
+                "seg_sums_g1", "seg_sums_g2", "g1_add", "g2_add")},
+            "bytes_equal_prove_2": same, "verified": ok}
+
+
+def big_msm(curve, c, n):
+    """An MSM of n points on the card, its inputs made there
+    (progression_inputs), against progression_msm_scalar's closed form.
+    Returns its JSON record."""
+    import torch
+    from zkpos_tpu_torch.crypto import bn254 as bn
+    from zkpos_tpu_torch.ops import ec, msm_device as md
+    g, mul = (bn.G1_GEN, bn.g1_mul) if curve == "g1" else \
+        (bn.G2_GEN, bn.g2_mul)
+    a, b, cc, d = progression_seeds(curve)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    base, sc = progression_inputs(curve, n, a, b, cc, d)
+    torch.cuda.synchronize()
+    t_inputs = time.time() - t0
+    t0 = time.time()
+    plan = md.ScalarPlan(sc, c=c)
+    del sc
+    torch.cuda.synchronize()
+    t_plan = time.time() - t0
+    held = torch.cuda.memory_allocated()
+    budget = md.transient_budget("cuda")
+    t0 = time.time()
+    st = {}
+    got = ec.to_affine(md.msm_point(curve, base, plan=plan, stats=st))[0]
+    t_msm = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    na, W, Np = base.shape[1], plan.W, plan.Np
+    del base, plan
+    torch.cuda.empty_cache()
+    want = mul(g, progression_msm_scalar(n, a, b, cc, d))
+    return {"curve": curve, "c": c, "n": n, "windows": W,
+            "inputs_s": round(t_inputs, 4), "plan_s": round(t_plan, 4),
+            "msm_s": round(t_msm, 4), "chunks": st["chunks"],
+            "columns": st["columns"], "peak_bytes": peak,
+            "held_before_msm_bytes": held, "chunk_budget_bytes": budget,
+            "chunk_bytes": md.chunk_bytes(W, st["columns"], na, c),
+            "one_pass_stream_bytes": W * n * na * 32,
+            "bases_bytes": n * na * 32, "plan_bytes": 8 * W * Np,
+            "equals_closed_form": got == want}
+
+
+def phase_memory(scs, pk, prove2):
+    """The memory path: the repo-size prove forced into chunks of 2^21
+    stream entries, then also with every base streamed (forced_prove),
+    each proof byte for byte prove #2's and verified; then the 2^26-point
+    MSMs in G1 (c = 16) and G2 (c = 12) against their closed form, each
+    peak below 80 GB beside the stream bytes one pass would need.  One
+    JSON line a run.  Returns the path's launches."""
+    from zkpos_tpu_torch.ops import field as F
+    F.LAUNCHES.clear()
+    for name, budget in (("chunks_2e21", None),
+                         ("chunks_2e21_streamed_bases", 0)):
+        rec = forced_prove(scs, pk, prove2, budget)
+        log(json.dumps({"memory_prove": name, **rec}))
+        if not (rec["bytes_equal_prove_2"] and rec["verified"]):
+            fail(f"memory path: the {name} proof differs from prove #2's "
+                 "or does not verify")
+        if min(rec["chunks"].values()) < 2:
+            fail(f"memory path: {name} left an MSM in one chunk")
+        if budget == 0 and len(rec["streamed"]) != 5:
+            fail("memory path: a budget of 0 left a base on the card")
+    for curve, c in BIG_MSM_C:
+        rec = big_msm(curve, c, 1 << BIG_MSM_LOG)
+        log(json.dumps({"memory_msm": rec}))
+        if not rec["equals_closed_form"]:
+            fail(f"memory path: the 2^{BIG_MSM_LOG}-point {curve} MSM "
+                 "differs from its closed form")
+        if rec["peak_bytes"] >= 80 * 10 ** 9:
+            fail(f"memory path: the {curve} MSM's peak is 80 GB or more")
+    launches = dict(F.LAUNCHES)
+    log(json.dumps({"memory_path_launches": launches}))
+    return launches
+
+
 # --- the main path -----------------------------------------------------------
 
 E8 = 10 ** 8
@@ -421,7 +608,8 @@ def phase_main(universe=100, tier=50, batch=16, tier_count=None, depth=None,
     the given sizes (the defaults are the repo's prove size, with the
     constants' own tier table and tree depth); phase seconds, peak device
     memory and the launch count of every kernel over the run.  Returns
-    (cs, pk, scs, launches, sizes)."""
+    (cs, pk, scs, launches, sizes, windows, prove #2: its proof, r and
+    s, the vk and the public values)."""
     import torch
     from zkpos_tpu_torch.utils import constants as C
     C.configure(asset_counts=universe, tier_count=tier_count,
@@ -499,21 +687,32 @@ def phase_main(universe=100, tier=50, batch=16, tier_count=None, depth=None,
     def keep_horner(rw, c):
         windows.append((rw.clone(), c))
         return horner(rw, c)
+    drawn = []          # prove #2's r and s, for the memory path's proves
+
+    def draw():
+        drawn.append(rs.randrange(F.FR_MOD))
+        return drawn[-1]
     for i in range(2):
         before = dict(F.LAUNCHES)
         if i == 1:
             ec.horner = keep_horner
+            # prove(spans=...) resets the peak at each of its stages
+            peak_before = (torch.cuda.max_memory_allocated() if on_card
+                           else None)
         try:
             proofs.append(g16.prove(scs, pk,
-                                    rng=lambda: rs.randrange(F.FR_MOD),
+                                    rng=draw if i == 1 else
+                                    lambda: rs.randrange(F.FR_MOD),
                                     spans=spans if i == 1 else None))
         finally:
             ec.horner = horner
         t = phase(f"prove_{i + 1}", t)
     per_prove = {k: v - before.get(k, 0) for k, v in F.LAUNCHES.items()
                  if v - before.get(k, 0)}
-    log(json.dumps({"prove_2_spans_s": {k: round(v, 4)
-                                        for k, v in spans.items()}}))
+    log(json.dumps({"prove_2_spans_s": {
+        k: round(v, 4) for k, v in spans.items() if isinstance(v, float)}}))
+    log(json.dumps({"prove_2_chunks": spans["chunks"],
+                    "prove_2_peak_bytes": spans.get("peak_bytes")}))
     log(json.dumps({"launches_per_prove": per_prove}))
     # a prove makes no one-point add launch: each MSM's Horner is one
     # launch, four in G1 and one in G2
@@ -534,14 +733,17 @@ def phase_main(universe=100, tier=50, batch=16, tier_count=None, depth=None,
     t = phase("verify", t)
     launches = dict(F.LAUNCHES)
     sizes = dict(F.SIZES)
-    peak = torch.cuda.max_memory_allocated() if on_card else None
+    peak = (max(peak_before, torch.cuda.max_memory_allocated(),
+                *spans["peak_bytes"].values()) if on_card else None)
     log(json.dumps({"main_path": {"constraints": len(cs.constraints),
                                   "domain": pk.domain_size,
                                   "phases_s": phases,
                                   "peak_device_bytes": peak,
                                   "verified": True}}))
     log(json.dumps({"kernels": launches}))
-    return cs, pk, scs, launches, sizes, windows
+    prove2 = {"proof": proofs[1], "r_s": drawn[-2:], "vk": vk,
+              "public": public}
+    return cs, pk, scs, launches, sizes, windows, prove2
 
 
 # the port's kernels in a profile, by a piece of their (demangled) names
@@ -709,6 +911,11 @@ def make_row(name, err, ms, n, plain_ms, plain_n, byts, muls):
             "ops_ms": round(t_ops, 4)}
 
 
+# elements of ff_pow's launch held against plain_pow (255 squarings of
+# every element: the plain version, not the kernel, takes the time)
+PLAIN_POW_SLICE = 1 << 18
+
+
 def phase_kernels(cs, pk, scs, sizes, windows):
     """Each kernel on the card at the largest shape the main path launched
     it with (the main path's own streams and matrix where it has them),
@@ -748,9 +955,10 @@ def phase_kernels(cs, pk, scs, sizes, windows):
     x = rand_fe(n, F.FR, gen)
     x[:3] = F.ints_to_tensor([0, 1, F.FR_MOD - 1], "cuda")
     k = F.power(x, e)
-    p, plain_ms = timed(lambda: F.plain_pow(x, e))
+    s = min(n, PLAIN_POW_SLICE)      # elementwise: a slice of the launch
+    p, plain_ms = timed(lambda: F.plain_pow(x[:s], e))
     ms = cuda_ms(lambda: F.power(x, e), reps=3)
-    row("ff_pow", max_abs_err(k, p), ms, n, plain_ms, n, 2 * 32 * n,
+    row("ff_pow", max_abs_err(k[:s], p), ms, n, plain_ms, s, 2 * 32 * n,
         (255 + bin(e).count("1")) * MULS_PER_MONT * n)
     del x, k, p
 
@@ -868,21 +1076,22 @@ def phase_kernels(cs, pk, scs, sizes, windows):
         torch.cuda.empty_cache()
     rows += phase_horner(windows)
 
-    # segmented scans over the main path's own MSM streams: G1 over the
-    # witness (A, c = 16; digit-0/1 segments of millions) in full, and over
-    # H (Z, the longest G1 stream) on head-aligned slices; G2 over the
-    # witness (B, c = 12, the longest stream) on head-aligned slices.  Both
+    # segmented scans over the main path's own MSM streams, on head-aligned
+    # slices (each stream's start, middle window, longest segment and
+    # tail): G1 over the witness (A, c = 16; digit-0/1 segments of
+    # millions) and over H (Z, the longest G1 stream); G2 over the witness
+    # (B, c = 12, the longest stream).  Both
     # outputs are checked against the same plain scan (seg_sums at the
     # segment ends) and timed on the A and B streams.  Bound: one complete
     # add for each element that is not a head; the scan reads and writes
     # every point, the sums read every point and write one a segment.
-    bases = pk.dev_bases
+    bases = {"a": pk.a_g1, "z": pk.z_g1, "b2": pk.b_g2}
     h = qd.compute_h_device(cs, zt, d)
     acc = {}
     means = {}
     for curve, base, plan, span, chunk, timed_here in (
             ("g1", bases["a"], md.ScalarPlan(zt, device="cuda"),
-             None, 1 << 21, True),
+             1 << 21, 1 << 21, True),
             ("g1", bases["z"], md.ScalarPlan(h, device="cuda"),
              1 << 21, 1 << 21, False),
             ("g2", bases["b2"], md.ScalarPlan(zt, c=12, device="cuda"),
@@ -1819,6 +2028,16 @@ def phase_pipeline(n_constraints, universe=100, tier=50, batch=16, depth=28,
     return launches
 
 
+# hashes of a Poseidon kernel's largest launch held against its plain
+# version (PLAIN_SLICE_T3 at t = 3, about PLAIN_SLICE_T3 * 9 / t^2 states
+# at width t, the first PLAIN_CHAIN_INPUTS inputs of PLAIN_CHAINS chains):
+# the plain versions' time, not the kernels', sets the phase's length,
+# and the plain chain's grows with its blocks, which run one after another
+PLAIN_SLICE_T3 = 1 << 16
+PLAIN_CHAINS = 8
+PLAIN_CHAIN_INPUTS = 16 + 15 + 7     # blocks 17, 17 and a narrower 9 wide
+
+
 def phase_poseidon_kernels(tree, inputs):
     """Each Poseidon kernel against its plain version on the card, bit for
     bit, on a slice of the inputs of its largest launch (hashes are
@@ -1829,7 +2048,7 @@ def phase_poseidon_kernels(tree, inputs):
     lvl0 = tree.levels[0]
     a_all, b_all = lvl0[0::2], lvl0[1::2]
     n = a_all.shape[0]
-    s = 1 << 18
+    s = PLAIN_SLICE_T3
     a, b = a_all[:s].contiguous(), b_all[:s].contiguous()
     p, plain_ms = timed(lambda: S.plain_hash2_mont_sparse(a, b))
     # exact on the slice and on its odd head (a block whose last threads
@@ -1854,23 +2073,22 @@ def phase_poseidon_kernels(tree, inputs):
     del st, a, b, k, p
     torch.cuda.empty_cache()
     # the sparse permutation at each width the paths ran, launched on the
-    # whole of its largest launch's input and timed there: every digest
-    # against the plain sparse schedule (the wrapper's CPU route), and a
-    # slice's (which bounds its memory) against the plain schedule, which
-    # reads none of the sparse tables
+    # whole of its largest launch's input and timed there: a slice's
+    # digests against the plain sparse schedule (the wrapper's CPU route)
+    # and against the plain schedule, which reads none of the sparse tables
     for name in sorted(inputs.best, key=lambda x: (len(x), x)):
         if not name.startswith("poseidon_sparse_t"):
             continue
         n, x = inputs.best[name]
         t = x.shape[1]
-        s = min(n, (1 << 18) * 9 // (t * t))
+        s = min(n, PLAIN_SLICE_T3 * 9 // (t * t))
         k = P.permute(x)
-        p, plain_ms = timed(lambda: S.plain_permute_sparse(x))
-        err = max_abs_err(k, p)
+        p, plain_ms = timed(lambda: S.plain_permute_sparse(x[:s]))
+        err = max_abs_err(k[:s], p)
         p, schedule_ms = timed(lambda: P.plain_permute(x[:s]))
         err = max(err, max_abs_err(k[:s], p))
         ms = cuda_ms(lambda: P.permute(x), reps=3)
-        rows.append(make_row(name, err, ms, n, plain_ms, n,
+        rows.append(make_row(name, err, ms, n, plain_ms, s,
                              (t + 1) * 32 * n,
                              sparse_monts(t) * MULS_PER_MONT * n))
         rows[-1]["ptxas"] = ptxas_of(f"6k_wideILi{t}EE")
@@ -1894,12 +2112,13 @@ def phase_poseidon_kernels(tree, inputs):
     rows[-1]["leaf_chain_vs_chain_mont"] = cmp
     # the chain at its largest launch (the service path's batched CEX
     # commitments): every chain against the per-block plain-schedule
-    # kernel, the first 113 inputs of every chain (8 blocks, a narrower
-    # last one) against the plain version; timed there and at one chain
+    # kernel, the first PLAIN_CHAIN_INPUTS inputs (3 blocks, a narrower
+    # last one) of PLAIN_CHAINS chains against the plain version; timed
+    # there and at one chain
     _, x = inputs.best["poseidon_chain"]
     b, n = x.shape[:2]
     err = max_abs_err(P.chain_mont(x), P.hash_chain_mont(x))
-    head = x[:, :113].contiguous()
+    head = x[:PLAIN_CHAINS, :PLAIN_CHAIN_INPUTS].contiguous()
     p, plain_ms = timed(lambda: P.plain_chain_mont(head))
     err = max(err, max_abs_err(P.chain_mont(head), p))
     ms = cuda_ms(lambda: P.chain_mont(x), reps=1, warm=False)
@@ -1909,7 +2128,8 @@ def phase_poseidon_kernels(tree, inputs):
     # (sparse_critical), not measured; the time a product is the measured
     # one-chain time over that count
     crit = sum(sparse_critical(t) for t in chain_widths(n))
-    r = make_row("poseidon_chain", err, ms, b * n, plain_ms, b * 113,
+    r = make_row("poseidon_chain", err, ms, b * n, plain_ms,
+                 head.shape[0] * head.shape[1],
                  32 * b * (n + 1), chain_monts(n) * MULS_PER_MONT * b)
     r.update({"chains": b, "ms_one_chain": round(ms_one, 4),
               "critical_path": {
@@ -2027,7 +2247,7 @@ def main():
     inputs = LargestInputs()
     inputs.install()
     launches = {}
-    cs, pk, scs, launches["prove"], sizes, windows = phase_main()
+    cs, pk, scs, launches["prove"], sizes, windows, prove2 = phase_main()
     need(launches["prove"], "prove")
     log(json.dumps({"prove_chain_launches": len(inputs.chain_launches),
                     "chains_per_launch": [c for c, _ in
@@ -2036,9 +2256,12 @@ def main():
     rows, means = phase_kernels(cs, pk, scs, sizes, windows)
     n_constraints = len(cs.constraints)
     del windows
-    del cs, pk, scs
-    torch.cuda.empty_cache()
     log(f"prove-path kernel checks done at {time.time() - t_all:.1f} s")
+    launches["memory"] = phase_memory(scs, pk, prove2)
+    need(launches["memory"], "memory")
+    del cs, pk, scs, prove2
+    torch.cuda.empty_cache()
+    log(f"memory path done at {time.time() - t_all:.1f} s")
     launches["pipeline"] = phase_pipeline(n_constraints)
     need(launches["pipeline"], "pipeline")
     log(f"pipeline path done at {time.time() - t_all:.1f} s")

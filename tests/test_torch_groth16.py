@@ -23,6 +23,7 @@ import dataclasses
 import gzip
 import os
 import pickle
+import weakref
 
 import numpy as np
 import pytest
@@ -141,6 +142,37 @@ def test_port_proof_equals_jax_proof(proved):
     assert tg16.verify(tproof, tvk, [WANT])
 
 
+def test_streamed_bases_prove_the_same_bytes(proved, monkeypatch):
+    """A key budget of 0 (groth16.place_bases): every MSM base lives in
+    host memory, and each prove MSM gets a copy of it, freed after the
+    MSM (on the CPU the copy is a clone); with the streams cut into two
+    chunks as well (ZKPOS_MSM_CHUNK: 256 columns of 480 or 512), the proof
+    bytes equal the resident key's under the same r and s."""
+    tpk = proved["tpk"]
+    assert tpk.streamed == frozenset()
+    pk = tg16.place_bases(dataclasses.replace(tpk), budget=0)
+    assert pk.streamed == {name for name, _ in tg16.MSM_BASES}
+    copies = []
+    msm = tg16.md.msm
+
+    def spy(curve, base, **kw):
+        copies.append((base.data_ptr(), weakref.ref(base)))
+        return msm(curve, base, **kw)
+    monkeypatch.setattr(tg16.md, "msm", spy)
+    monkeypatch.setenv("ZKPOS_MSM_CHUNK", str(256 * 32))
+    tcs = TCS(solve=True)
+    build_lookup(tcs, TLookup, WANT, IDXS)
+    spans = {}
+    proof = tg16.prove(tcs, pk, rng=fixed_rng(200, 2), spans=spans)
+    assert tser.proof_to_bytes(proof) == tser.proof_to_bytes(proved["tproof"])
+    assert spans["chunks"] == {"msm_a": 2, "msm_b1": 2, "msm_b2": 2,
+                               "msm_k": 2, "msm_z": 2}
+    homes = {getattr(pk, name).data_ptr() for name, _ in tg16.MSM_BASES}
+    prove_msms = copies[-5:]
+    assert not homes & {ptr for ptr, _ in prove_msms}
+    assert all(ref() is None for _, ref in prove_msms)
+
+
 # --- proof and key bytes, and the artifacts both packages read ---------------
 
 def test_proof_bytes_equal_jax(proved):
@@ -183,7 +215,7 @@ def test_pk_written_by_port_loads_in_jax(proved, tmp_path):
     affine (Z != 1) is normalised on save: the JAX package's loader reads
     the JAX keys' points back; the vk file is the gnark bytes."""
     tpk = proved["tpk"]
-    scaled = dataclasses.replace(tpk, dev_bases={}, **{
+    scaled = dataclasses.replace(tpk, **{
         name: _rescaled(getattr(tpk, name), i)
         for i, name in enumerate(("a_g1", "b1_g1", "k_g1", "z_g1", "b_g2",
                                   "ck_bases", "ck_sigma_bases"))})

@@ -118,9 +118,16 @@ def test_pick_c_matches_jax(n):
 
 
 def test_plan_pads_front_with_identity_index():
+    """The front padding carries digit 0 and reads base row 0, so it lands
+    in bucket 0, which the fold weights 0 (the base has no identity row);
+    each scalar's row follows in stable digit order."""
     plan = tmd.ScalarPlan([3, 0, 7], c=8, device="cpu")
     assert plan.Np % tmd.PAD_QUANTUM == 0 and plan.Np >= 3
-    assert (plan.idx == 0).sum(dim=1).tolist() == [plan.Np - 3] * plan.W
+    pad = plan.Np - 3
+    assert plan.dig[0].tolist() == [0] * (pad + 1) + [3, 7]
+    assert plan.idx[0].tolist() == [0] * pad + [1, 0, 2]
+    assert plan.dig[1:].eq(0).all()
+    assert plan.idx[1:].tolist() == [[0] * pad + [0, 1, 2]] * (plan.W - 1)
     assert bool((plan.dig[:, 1:] >= plan.dig[:, :-1]).all())
 
 

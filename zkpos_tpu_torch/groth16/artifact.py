@@ -9,8 +9,9 @@ loads in the other (reference keygen main.go:46-66 writes
   * `.pk` / `.r1cs` — a JSON header (scalars, shapes, section table) and
     raw little-endian numpy sections.
 
-The proving key's bases are device tensors here (projective, Montgomery
-form; groth16.ProvingKey).  A save normalises them where they live: the
+The proving key's bases are tensors here (projective, Montgomery form;
+groth16.ProvingKey), on the device or, past its budget, in host memory
+(groth16.place_bases).  A save normalises them on the device: the
 affine coordinates from one batched inverse, out of Montgomery form, as
 (n, 2, 4) / (n, 4, 4) uint64 limbs with a u8 mask that is 0 at the
 identity, then one copy to the host (groth16.tensor_to_arrays).  A load
@@ -140,7 +141,7 @@ def save_pk(path: str, pk: g16.ProvingKey) -> None:
         if pts is None:
             meta[name] = None
             continue
-        coords, mask = g16.tensor_to_arrays(pts)
+        coords, mask = g16.tensor_to_arrays(pts.to(pk.device))
         meta[name] = curve
         sections[name + ".limbs"] = coords
         sections[name + ".mask"] = mask.astype(np.uint8)
@@ -149,14 +150,24 @@ def save_pk(path: str, pk: g16.ProvingKey) -> None:
 
 def load_pk(path: str, device=None) -> g16.ProvingKey:
     """The proving key with its bases as tensors on `device` (the card
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU), each MSM base there or in host
+    memory as groth16.resident_bases decides from the sections' bytes and
+    the device's budget (groth16.key_budget), one base at a time."""
     dev = resolve(device)
     meta, sec = _read_container(path)
-    bases = {name: None if meta.get(name) is None else
-             g16.arrays_to_tensor(sec[name + ".limbs"], sec[name + ".mask"],
-                                  curve, dev)
-             for name, curve in g16._PK_BASES.items()}
+    na = {"g1": 3, "g2": 6}
+    sizes = {name: sec[name + ".limbs"].shape[0] * na[curve] * 32
+             for name, curve in g16.MSM_BASES}
+    keep = g16.resident_bases(sizes, g16.key_budget(
+        dev, sec["a_g1.limbs"].shape[0], meta["domain_size"]))
+    bases = {}
+    for name, curve in g16._PK_BASES.items():
+        pts = None if meta.get(name) is None else g16.arrays_to_tensor(
+            sec[name + ".limbs"], sec[name + ".mask"], curve, dev)
+        bases[name] = (g16.to_host(pts, dev) if name in sizes
+                       and name not in keep else pts)
     return g16.ProvingKey(
+        device=dev, streamed=frozenset(sizes) - keep,
         alpha_g1=_pt_unhex(meta["alpha_g1"], "g1"),
         beta_g1=_pt_unhex(meta["beta_g1"], "g1"),
         delta_g1=_pt_unhex(meta["delta_g1"], "g1"),

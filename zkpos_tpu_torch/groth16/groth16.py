@@ -4,9 +4,17 @@ Counterpart of zkpos_tpu/groth16/groth16.py (gnark's backend/groth16;
 reference keygen main.go:42, prover.go:269-276, verifier main.go:284).
 Setup evaluates the QAP at tau on the device (vectorised over the flat
 constraint arrays) and builds the proving-key bases with the fixed-base
-batch; the bases stay device tensors.  Prove computes H(X) with the device
-NTT pipeline and runs the five MSMs on the sorted-stream engine.
-Verification is the pairing check on the host oracle.
+batch.  Prove computes H(X) with the device NTT pipeline and runs the five
+MSMs on the sorted-stream engine.  Verification is the pairing check on
+the host oracle.
+
+The key's five MSM bases are held once, each either on the device or, past
+a budget of device bytes, in host memory (pinned beside a card), copied to
+the device for its MSM and freed after it (`place_bases`, the counterpart
+of the JAX package's _pk_device_cache).  The budget is the device's free
+memory less what a prove holds beside the bases (`prove_reserve_bytes`),
+or ZKPOS_PK_DEVCACHE_GB GiB when that is set; at the repo's prove size on
+an H100 every base stays on the card.
 
 Proof system (standard Groth16):
   A = alpha + sum z_i A_i(tau) + r delta                       (G1)
@@ -19,6 +27,7 @@ from __future__ import annotations
 
 import secrets
 import time
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -57,8 +66,15 @@ class ProvingKey:
     challenge_wire: Optional[int] = None
     ck_bases: Optional[torch.Tensor] = None
     ck_sigma_bases: Optional[torch.Tensor] = None
-    # MSM bases with the identity row prepended, built on first prove
-    dev_bases: dict = field(default_factory=dict, repr=False)
+    # the device the prove runs on (the bases' own by default), and the
+    # MSM bases (MSM_BASES fields) held in host memory there, copied to
+    # the device for their MSM (place_bases)
+    device: Optional[torch.device] = field(default=None, repr=False)
+    streamed: frozenset = frozenset()
+
+    def __post_init__(self):
+        if self.device is None:
+            self.device = self.a_g1.device
 
 
 @dataclass
@@ -196,26 +212,113 @@ def setup(cs, rng=None, device=None):
         sigma_g2=bn.g2_mul(bn.G2_GEN, sigma) if commit else None,
         beta_g1=pk.beta_g1, delta_g1=pk.delta_g1,
         public_and_commitment_committed=[[]] if commit else [])
-    return pk, vk
+    return place_bases(pk), vk
 
 
-def _bases(pk: ProvingKey) -> dict:
-    """MSM bases with the identity row, built once per pk (the analog of
-    gnark's LoadSnarkParamsOnce, reference prover.go:285-367)."""
-    if not pk.dev_bases:
-        for name, curve, pts in (("a", "g1", pk.a_g1), ("b1", "g1", pk.b1_g1),
-                                 ("k", "g1", pk.k_g1), ("z", "g1", pk.z_g1),
-                                 ("b2", "g2", pk.b_g2)):
-            pk.dev_bases[name] = md.device_base(curve, pts)
-    return pk.dev_bases
+# --- where the key's MSM bases live ----------------------------------------------
+
+# the proving key's MSM bases and their curves, in the order the budget
+# keeps them (the JAX package's _pk_device_cache: the G1 bases first)
+MSM_BASES = (("a_g1", "g1"), ("b1_g1", "g1"), ("k_g1", "g1"),
+             ("z_g1", "g1"), ("b_g2", "g2"))
+# Fr elements a point of the domain that the H pipeline holds at once
+# (compute_h_device: the witness in Montgomery form, the three matrix
+# rows, the NTTs' buffers and H)
+H_ELEMENTS = 12
+# stream entries of the chunk the reserve keeps room for (the JAX
+# package's default chunk)
+RESERVE_CHUNK = 1 << 21
+
+
+def prove_reserve_bytes(n_wires: int, domain_size: int) -> int:
+    """Device bytes a prove holds beside its resident bases at its
+    largest: the witness and H, and the larger of the H pipeline's
+    buffers and the MSMs' (the witness's G1 and G2 plans, a G2 chunk of
+    RESERVE_CHUNK entries with the bucket grid of c = 16); the MSMs take
+    whatever more is free for larger chunks (msm_device.chunk_columns)."""
+    Np = -(-max(n_wires, 1) // md.PAD_QUANTUM) * md.PAD_QUANTUM
+    held = 32 * (n_wires + domain_size)
+    h = H_ELEMENTS * 32 * domain_size
+    w12, w16 = md.windows_count(12), md.windows_count(16)
+    plans = 8 * Np * (w12 + w16)
+    chunk = md.chunk_bytes(w12, RESERVE_CHUNK // w12, 6, 12)
+    grid = md.chunk_bytes(w16, 0, 3, 16)
+    return held + max(h, plans + max(chunk, grid)) + md.HEADROOM_BYTES
+
+
+def base_bytes(pk: ProvingKey) -> dict:
+    """Bytes of each MSM base of the key, by field name."""
+    return {name: getattr(pk, name).numel() * 4 for name, _ in MSM_BASES}
+
+
+def resident_bases(sizes: dict, budget: Optional[int]) -> frozenset:
+    """The MSM bases kept on the device for a budget of bytes (None: no
+    budget, all): in MSM_BASES order, each base whose bytes still fit
+    beside those kept before it."""
+    if budget is None:
+        return frozenset(sizes)
+    keep, used = set(), 0
+    for name, _ in MSM_BASES:
+        if name in sizes and used + sizes[name] <= budget:
+            keep.add(name)
+            used += sizes[name]
+    return frozenset(keep)
+
+
+def key_budget(device, n_wires: int, domain_size: int,
+               held: int = 0) -> Optional[int]:
+    """Bytes of MSM bases the device keeps: ZKPOS_PK_DEVCACHE_GB GiB when
+    it is set (as the JAX package reads it), else the device's free
+    memory, with `held` bytes of bases already on it, less
+    prove_reserve_bytes; None (no budget) on the CPU."""
+    env = os.environ.get("ZKPOS_PK_DEVCACHE_GB")
+    if env is not None:
+        return int(float(env) * 2 ** 30)
+    free = md.free_bytes(device)
+    if free is None:
+        return None
+    return max(free + held - prove_reserve_bytes(n_wires, domain_size), 0)
+
+
+def to_host(pts: torch.Tensor, device) -> torch.Tensor:
+    """A streamed base's home: host memory, pinned when the prove's device
+    is a card (its copy to the card then runs asynchronously)."""
+    pts = pts.cpu()
+    if torch.device(device).type == "cuda" and not pts.is_pinned():
+        pts = pts.pin_memory()
+    return pts
+
+
+def place_bases(pk: ProvingKey, budget: Optional[int] = None) -> ProvingKey:
+    """Put each MSM base of `pk` where resident_bases decides for `budget`
+    bytes (key_budget's by default): on pk.device, or in host memory
+    (to_host) and named in pk.streamed.  Bases leave the device before
+    others come to it.  Returns pk."""
+    sizes = base_bytes(pk)
+    if budget is None:
+        held = sum(b for name, b in sizes.items()
+                   if getattr(pk, name).device.type == pk.device.type)
+        budget = key_budget(pk.device, pk.a_g1.shape[0], pk.domain_size,
+                            held)
+    keep = resident_bases(sizes, budget)
+    for name in sorted(sizes, key=lambda n: n in keep):
+        pts = getattr(pk, name)
+        setattr(pk, name, pts.to(pk.device) if name in keep
+                else to_host(pts, pk.device))
+    pk.streamed = frozenset(sizes) - keep
+    return pk
 
 
 def prove(cs, pk: ProvingKey, rng=None, spans: Optional[dict] = None) -> Proof:
     """groth16.Prove (prover.go:269): witness from the solved system, H via
     the device NTT pipeline, five MSMs on the sorted-stream engine.  The
     witness's scalar plan is built once and shared by the A and B1 MSMs.
-    With a `spans` dict, the seconds of each stage are recorded in it (the
-    device is synchronized at each stage boundary)."""
+    A streamed base (pk.streamed) is copied to the device for its MSM and
+    freed after it.  With a `spans` dict, the seconds of each stage are
+    recorded in it (the device is synchronized at each stage boundary),
+    the chunks of each MSM in spans["chunks"], and on a card each stage's
+    peak device bytes in spans["peak_bytes"] (the peak is reset at each
+    boundary)."""
     if not cs.solve:
         raise ValueError("prove requires a solved constraint system")
     if pk.commit_wires is not None and cs._commit_key is None:
@@ -225,39 +328,54 @@ def prove(cs, pk: ProvingKey, rng=None, spans: Optional[dict] = None) -> Proof:
     rand = rng or (lambda: secrets.randbelow(MOD))
     r, s = rand(), rand()
 
-    dev = pk.a_g1.device
+    dev = pk.device
+    on_card = dev.type == "cuda"
     t0 = [time.perf_counter()]
+    if spans is not None:
+        chunks = spans.setdefault("chunks", {})
+        peaks = spans.setdefault("peak_bytes", {}) if on_card else None
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
 
     def span(name):
         if spans is not None:
-            if dev.type == "cuda":
+            if on_card:
                 torch.cuda.synchronize(dev)
+                peaks[name] = torch.cuda.max_memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
             t = time.perf_counter()
             spans[name] = spans.get(name, 0.0) + t - t0[0]
             t0[0] = t
 
+    def run(name, field_name, curve, **kw):
+        pts = getattr(pk, field_name)
+        if field_name in pk.streamed:
+            pts = pts.to(dev, non_blocking=True, copy=True)
+        st = {}
+        out = md.msm(curve, pts, stats=st, **kw)
+        del pts                     # a streamed base's copy is freed here
+        if spans is not None:
+            chunks[name] = st["chunks"]
+        span(name)
+        return out
+
     zt = md.scalars_tensor(z, dev)
     h = compute_h_device(cs, zt, pk.domain_size)
     span("compute_h")
-    bases = _bases(pk)
     plan_z = md.ScalarPlan(zt, device=dev)
     span("plan_z")
-    sum_a = md.msm("g1", bases["a"], plan=plan_z)
-    span("msm_a")
-    sum_b1 = md.msm("g1", bases["b1"], plan=plan_z)
-    span("msm_b1")
+    sum_a = run("msm_a", "a_g1", "g1", plan=plan_z)
+    sum_b1 = run("msm_b1", "b1_g1", "g1", plan=plan_z)
     # G2: narrower windows at scale (16x smaller bucket grid over six
     # coordinates), as the reference engine
     plan_z2 = md.ScalarPlan(zt, c=12, device=dev) if zt.shape[0] > (1 << 17) \
         else plan_z
     del plan_z
-    sum_b2 = md.msm("g2", bases["b2"], plan=plan_z2)
+    sum_b2 = run("msm_b2", "b_g2", "g2", plan=plan_z2)
     del plan_z2
-    span("msm_b2")
-    krs_priv = md.msm("g1", bases["k"], scalars=zt[pk.num_public:])
-    span("msm_k")
-    krs_h = md.msm("g1", bases["z"], scalars=h)
-    span("msm_z")
+    krs_priv = run("msm_k", "k_g1", "g1", scalars=zt[pk.num_public:])
+    krs_h = run("msm_z", "z_g1", "g1", scalars=h)
 
     ar = bn.g1_add(bn.g1_add(pk.alpha_g1, sum_a),
                    bn.g1_mul(pk.delta_g1, r))

@@ -4,13 +4,19 @@ Counterpart of zkpos_tpu/ops/msm_device.py, the engine of the five proof
 MSMs and the two commitment MSMs:
 
   1. window digits of the scalars (c-bit, c <= 16), front-padded with
-     digit 0 pointing at the identity in base row 0, and sorted per window
-     (`ScalarPlan`; the sort is torch.sort);
-  2. the bases gathered in sorted order into one flat stream (all windows
-     back to back) with a head wherever the digit changes and at every
-     window start, and ONE segmented EC sum over it (ops/ec.seg_sums):
-     each segment's sum is its bucket's, placed at (window, digit of its
-     head) in the (W, 2^c) bucket grid;
+     digit 0 to a multiple of PAD_QUANTUM and sorted per window, one
+     window at a time (`ScalarPlan`; the sort is torch.sort); a padding
+     column reads base row 0, which lands in bucket 0, and bucket 0 has
+     weight 0, so the base needs no identity row;
+  2. the stream walked in chunks of Cn columns of every window: a chunk's
+     base points gathered in sorted order (its windows back to back) with
+     a head wherever the digit changes and at every window start, and ONE
+     segmented EC sum over it (ops/ec.seg_sums); each segment's sum is
+     placed at (window, digit of its head) in the (W, 2^c) bucket grid.
+     After the first chunk, each window's first segment may continue a
+     bucket of the chunk before: its sum is added to what the grid holds
+     there (ops/ec.point_add over the W first segments, the identity where
+     the bucket is new), so every bucket ends with its whole sum;
   3. the bucket fold: the suffix sums T_j = sum_{b >= j} S_b as a
      reversed segmented scan over the bucket grid (ops/ec.seg_scan), T_0
      replaced by the identity, then each window's sum_{j >= 1} T_j
@@ -23,14 +29,21 @@ MSMs and the two commitment MSMs:
 the sharded MSM gathers, parallel/mesh.py); `msm` reads it back as an
 affine host point.
 
-The TPU engine cut the stream into 2^21-entry chunks with a per-window
-carry to fit a v5e's 16 GB.  The H100's 80 GB hold a whole MSM's stream
-(the largest, G2 at c = 12 over 1.92 M scalars, is 42 M points, 8 GB), so
-the port scans it in one pass.
+The chunk is decided before any launch, from byte counts: the plan's
+`chunk` columns when given (as the JAX package's ScalarPlan(chunk=)),
+else ZKPOS_MSM_CHUNK stream entries a chunk (read as the JAX package
+reads it, `env_chunk_columns`), else as many columns as the device's free
+memory holds (`chunk_columns` over `transient_budget`): one chunk, the
+whole stream, whenever it fits, as every MSM of the repo-size prove does
+on an H100 (the largest, G2 at c = 12 over 1.92 M scalars, is 42 M points,
+8 GB), and as many chunks as the memory needs when it does not (an MSM
+of 2^26 G2 points at c = 12 would need 283 GB in one pass).  On the CPU
+there is no budget: one chunk unless asked.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -41,6 +54,10 @@ from . import ec
 from . import field as F
 
 PAD_QUANTUM = 32     # the stream is front-padded to a multiple of this
+# device bytes kept free of an MSM's chunk: a quarter of what is free,
+# and this much beside it (the allocator's rounding of the chunk's blocks,
+# the seg_sums scratch, the sort's workspace)
+HEADROOM_BYTES = 1 << 30
 
 
 def scalars_tensor(scalars, device) -> torch.Tensor:
@@ -53,22 +70,29 @@ def scalars_tensor(scalars, device) -> torch.Tensor:
     return F.ints_to_tensor([int(s) % F.FR_MOD for s in scalars], device)
 
 
+def window_digits(scalars: torch.Tensor, c: int, w: int) -> torch.Tensor:
+    """(N,) int32 c-bit digit w (little-endian windows, c <= 16) of (N, 8)
+    standard-form scalar rows."""
+    lo = w * c
+    limb, sh = lo // 32, lo % 32
+    v = (scalars[:, limb].long() & 0xFFFFFFFF) >> sh
+    if sh + c > 32 and limb + 1 < 8:
+        v = v | ((scalars[:, limb + 1].long() & 0xFFFFFFFF) << (32 - sh))
+    return (v & ((1 << c) - 1)).to(torch.int32)
+
+
+def windows_count(c: int) -> int:
+    """W = ceil(254 / c), the c-bit windows of a scalar below r."""
+    return -(-254 // c)
+
+
 def windows_of(scalars: torch.Tensor, c: int) -> torch.Tensor:
     """(W, N) int32 c-bit little-endian window digits (c <= 16) of (N, 8)
-    standard-form scalar rows, W = ceil(254 / c)."""
+    standard-form scalar rows, W = windows_count(c)."""
     if c > 16:
         raise ValueError("window width capped at 16")
-    u = scalars.long() & 0xFFFFFFFF                       # (N, 8)
-    W = -(-254 // c)
-    rows = []
-    for w in range(W):
-        lo = w * c
-        limb, sh = lo // 32, lo % 32
-        v = u[:, limb] >> sh
-        if sh + c > 32 and limb + 1 < 8:
-            v = v | (u[:, limb + 1] << (32 - sh))
-        rows.append(v & ((1 << c) - 1))
-    return torch.stack(rows).to(torch.int32)
+    return torch.stack([window_digits(scalars, c, w)
+                        for w in range(windows_count(c))])
 
 
 def pick_c(n: int) -> int:
@@ -84,79 +108,186 @@ def pick_c(n: int) -> int:
 class ScalarPlan:
     """Window digits of one scalar vector, sorted per window on the device
     and shared by every MSM over the same scalars (A/B1 in groth16.prove).
-    `dig` / `idx`: (W, Np) int32, idx 0 is the identity row of the base."""
+    `dig` / `idx`: (W, Np) int32, idx the base row of each sorted digit
+    (row 0 in the padding columns, whose digit is 0).  `chunk`: columns of
+    the stream a chunk walks, 0 to decide at each MSM."""
 
-    __slots__ = ("n", "c", "W", "K", "Np", "dig", "idx", "device")
+    __slots__ = ("n", "c", "W", "K", "Np", "chunk", "dig", "idx", "device")
 
     def __init__(self, scalars, c: Optional[int] = None, device=None,
-                 windows: Optional[int] = None):
+                 windows: Optional[int] = None, chunk: int = 0):
         """`windows` keeps only the low window rows, for scalars below
         2^(c * windows) (a small multi-rank check, as the JAX dryrun feeds
-        two rows); a non-zero digit above them raises."""
+        two rows); a non-zero digit above them raises.  The windows are
+        sorted one at a time, so the plan's transients are a window's."""
+        if chunk < 0:
+            raise ValueError("chunk must be 0 (decided at each MSM) or a "
+                             "number of columns")
         dev = (scalars.device if isinstance(scalars, torch.Tensor)
                and device is None else resolve(device))
         self.device = dev
         sc = scalars_tensor(scalars, dev)
         self.n = sc.shape[0]
         self.c = c if c is not None else pick_c(max(self.n, 2))
-        win = windows_of(sc, self.c)                       # (W, n)
-        if windows is not None:
-            if bool((win[windows:] != 0).any()):
-                raise ValueError(
-                    f"a scalar is not below 2^{self.c * windows}")
-            win = win[:windows]
-        self.W = win.shape[0]
-        self.K = int((win != 0).sum(dim=1).max()) if self.n else 0
+        if self.c > 16:
+            raise ValueError("window width capped at 16")
+        W_all = windows_count(self.c)
+        self.W = W_all if windows is None else min(windows, W_all)
+        self.chunk = chunk
         self.Np = -(-max(self.n, 1) // PAD_QUANTUM) * PAD_QUANTUM
-        if self.K == 0:
-            self.dig = self.idx = None
+        self.K = 0
+        self.dig = self.idx = None
+        if self.n == 0:
             return
         pad = self.Np - self.n
-        dig = torch.nn.functional.pad(win, (pad, 0))
-        idx = torch.nn.functional.pad(
-            torch.arange(1, self.n + 1, dtype=torch.int32,
-                         device=dev).expand(self.W, self.n), (pad, 0))
-        self.dig, order = torch.sort(dig, dim=1, stable=True)
-        self.idx = torch.gather(idx, 1, order)
+        dig = torch.empty((self.W, self.Np), dtype=torch.int32, device=dev)
+        idx = torch.empty((self.W, self.Np), dtype=torch.int32, device=dev)
+        nonzero = []
+        for w in range(W_all):
+            d = window_digits(sc, self.c, w)
+            if w >= self.W:
+                if bool((d != 0).any()):
+                    raise ValueError(
+                        f"a scalar is not below 2^{self.c * self.W}")
+                continue
+            nonzero.append((d != 0).sum())
+            dig[w], order = torch.sort(torch.nn.functional.pad(d, (pad, 0)),
+                                       stable=True)
+            idx[w] = (order - pad).clamp_(min=0)
+            del d, order
+        self.K = int(torch.stack(nonzero).max())
+        if self.K:
+            self.dig, self.idx = dig, idx
 
 
 def device_base(curve: str, points, device=None) -> torch.Tensor:
-    """An MSM base as (N + 1, na, 8) with the identity at row 0: from a
-    device tensor of projective points or from host affine points (put on
-    `device`, the card unless the caller asks for the CPU)."""
+    """An MSM base as (N, na, 8) projective points: a tensor as it is, on
+    its own device, or host affine points put on `device` (the card unless
+    the caller asks for the CPU).  No identity row: the plan's padding
+    reads row 0 into bucket 0, which the fold weights 0."""
     if isinstance(points, torch.Tensor):
-        dev = points.device
-        pts = points
-    else:
-        dev = resolve(device)
-        pts = ec.from_affine(points, curve, dev)
-    na = 3 if curve == "g1" else 6
-    return torch.cat([ec.identity(na, 1, dev), pts.to(dev)]).contiguous()
+        return points.contiguous()
+    return ec.from_affine(points, curve, resolve(device))
 
 
-def sorted_stream(plan: ScalarPlan, base: torch.Tensor):
-    """The flat stream the bucket scan runs over: (W * Np, na, 8) base
-    points in sorted digit order, and (W * Np,) heads where the digit
-    changes and at every window start."""
-    pts = base.index_select(0, plan.idx.reshape(-1).long())
-    heads = torch.ones((plan.W, plan.Np), dtype=torch.bool,
-                       device=base.device)
-    heads[:, 1:] = plan.dig[:, 1:] != plan.dig[:, :-1]
+def sorted_stream(plan: ScalarPlan, base: torch.Tensor, lo: int = 0,
+                  hi: Optional[int] = None):
+    """The stream the bucket sums run over, columns [lo, hi) of every
+    window (all of them by default): (W * (hi - lo), na, 8) base points in
+    sorted digit order, and heads where the digit changes and at every
+    window start."""
+    hi = plan.Np if hi is None else hi
+    pts = base.index_select(0, plan.idx[:, lo:hi].reshape(-1).long())
+    dig = plan.dig[:, lo:hi]
+    heads = torch.ones(dig.shape, dtype=torch.bool, device=base.device)
+    heads[:, 1:] = dig[:, 1:] != dig[:, :-1]
     return pts, heads.reshape(-1)
 
 
-def _bucket_sums(na: int, plan: ScalarPlan, base: torch.Tensor):
+# --- the chunk, from byte counts ---------------------------------------------
+
+def chunk_bytes(W: int, Cn: int, na: int, c: int) -> int:
+    """Device bytes an MSM holds at once for a chunk of Cn columns of W
+    windows: each entry's gathered point, its int32 and int64 index and
+    its head; each segment's sum, slot and position (a window's chunk has
+    at most min(Cn, 2^c) segments, one a distinct digit); and the bucket
+    grid with the fold's three copies of it."""
+    pb = 32 * na
+    grid = W * (1 << c) * pb
+    return W * Cn * (pb + 16) + W * min(Cn, 1 << c) * (pb + 32) + 4 * grid
+
+
+def chunk_columns(W: int, Np: int, na: int, c: int,
+                  budget: Optional[int]) -> int:
+    """Columns a chunk for a budget of device bytes (None: no budget): all
+    Np, one chunk, when the whole stream fits; else the fewest chunks of
+    columns that fit, as even as multiples of PAD_QUANTUM allow (the last
+    may be shorter).  Raises when not even PAD_QUANTUM columns fit."""
+    if budget is None or chunk_bytes(W, Np, na, c) <= budget:
+        return Np
+    lo, hi = 0, Np // PAD_QUANTUM          # quanta: lo fits, hi does not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if chunk_bytes(W, mid * PAD_QUANTUM, na, c) <= budget:
+            lo = mid
+        else:
+            hi = mid
+    if lo == 0:
+        raise RuntimeError(
+            f"an MSM chunk of {PAD_QUANTUM} columns needs "
+            f"{chunk_bytes(W, PAD_QUANTUM, na, c)} device bytes, "
+            f"{budget} are free")
+    per = -(-Np // -(-Np // (lo * PAD_QUANTUM)))    # Np over the chunks
+    return -(-per // PAD_QUANTUM) * PAD_QUANTUM
+
+
+def env_chunk_columns(W: int) -> Optional[int]:
+    """ZKPOS_MSM_CHUNK, stream entries a chunk (read as the JAX package's
+    _chunk_cols reads it), as columns: entries / W, at least 256, rounded
+    down to a power of two.  None when it is not set."""
+    v = os.environ.get("ZKPOS_MSM_CHUNK")
+    if v is None:
+        return None
+    per_row = max(int(v) // max(W, 1), 256)
+    return 1 << (per_row.bit_length() - 1)
+
+
+def free_bytes(device) -> Optional[int]:
+    """Bytes the caching allocator can still hand out on a CUDA device:
+    the free memory cudaMemGetInfo reports and the blocks PyTorch holds
+    unused.  None on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def transient_budget(device) -> Optional[int]:
+    """Device bytes an MSM's chunk may take: three quarters of free_bytes
+    less HEADROOM_BYTES (at least 0); None on the CPU."""
+    free = free_bytes(device)
+    return None if free is None else max(free * 3 // 4 - HEADROOM_BYTES, 0)
+
+
+def plan_columns(plan: ScalarPlan, na: int, device) -> int:
+    """The columns a chunk of this MSM walks: the plan's own, else
+    ZKPOS_MSM_CHUNK's, else chunk_columns over the device's budget now."""
+    Cn = (plan.chunk or env_chunk_columns(plan.W)
+          or chunk_columns(plan.W, plan.Np, na, plan.c,
+                           transient_budget(device)))
+    return min(Cn, plan.Np)
+
+
+# --- the MSM -------------------------------------------------------------------
+
+def _bucket_sums(na: int, plan: ScalarPlan, base: torch.Tensor, Cn: int):
     """(W, 2^c, na, 8) bucket grid: the sum of the base points whose digit
-    is b in window w (identity where none)."""
+    is b in window w (identity where none), over chunks of Cn columns."""
     W, Np, nb = plan.W, plan.Np, 1 << plan.c
-    pts, heads = sorted_stream(plan, base)
-    sums = ec.seg_sums(pts, heads)
-    del pts
-    at = heads.nonzero().flatten()            # each segment's head
-    del heads
-    slot = (at // Np) * nb + plan.dig.reshape(-1)[at].long()
     dense = ec.identity(na, W * nb, base.device)
-    dense[slot] = sums
+    for lo in range(0, Np, Cn):
+        hi = min(lo + Cn, Np)
+        m = hi - lo
+        pts, heads = sorted_stream(plan, base, lo, hi)
+        sums = ec.seg_sums(pts, heads)
+        del pts
+        at = heads.nonzero().flatten()        # each segment's head
+        w = at // m
+        slot = w * nb + plan.dig[w, lo + at % m].long()
+        del at, w
+        if lo == 0:
+            dense[slot] = sums
+            continue
+        # each window's first segment: the rest of a bucket of the chunks
+        # before when its digit continues (the grid holds their part), a
+        # new bucket (the grid holds the identity) when it does not
+        count = heads.reshape(W, m).sum(dim=1)
+        first = torch.cumsum(count, 0) - count
+        part = ec.point_add(dense[slot[first]], sums[first])
+        dense[slot] = sums
+        dense[slot[first]] = part
     return dense.reshape(W, nb, na, 8)
 
 
@@ -176,23 +307,30 @@ def _fold(na: int, W: int, c: int, dense: torch.Tensor) -> torch.Tensor:
 
 
 def msm_point(curve: str, base: torch.Tensor, scalars=None,
-              plan: Optional[ScalarPlan] = None) -> torch.Tensor:
+              plan: Optional[ScalarPlan] = None,
+              stats: Optional[dict] = None) -> torch.Tensor:
     """sum_i s_i * P_i over a base from `device_base`, as a (1, na, 8)
     projective point on the base's device (the identity when every scalar
-    is zero).  Either `scalars` or a prebuilt `plan` must be given."""
+    is zero).  Either `scalars` or a prebuilt `plan` must be given.  With
+    a `stats` dict, the chunks walked and their columns are recorded in
+    it ("chunks", "columns"; 0 and 0 when every scalar is zero)."""
     na = 3 if curve == "g1" else 6
     if plan is None:
         plan = ScalarPlan(scalars, device=base.device)
+    Cn = plan_columns(plan, na, base.device) if plan.K else 0
+    if stats is not None:
+        stats["columns"] = Cn
+        stats["chunks"] = -(-plan.Np // Cn) if Cn else 0
     if plan.K == 0:
         return ec.identity(na, 1, base.device)
-    dense = _bucket_sums(na, plan, base)
+    dense = _bucket_sums(na, plan, base, Cn)
     rw = _fold(na, plan.W, plan.c, dense)
     del dense
     return ec.horner(rw, plan.c)
 
 
 def msm(curve: str, base: torch.Tensor, scalars=None,
-        plan: Optional[ScalarPlan] = None):
+        plan: Optional[ScalarPlan] = None, stats: Optional[dict] = None):
     """msm_point as an affine host point, or None when the sum is the
     identity (every scalar zero included)."""
-    return ec.to_affine(msm_point(curve, base, scalars, plan))[0]
+    return ec.to_affine(msm_point(curve, base, scalars, plan, stats))[0]

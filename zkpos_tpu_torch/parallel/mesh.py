@@ -162,9 +162,8 @@ def sharded_stream_msm(mesh: Mesh, curve: str, base_shard: torch.Tensor,
                        plan: Optional[md.ScalarPlan] = None):
     """The production MSM over the bases of all ranks, replicated (1, na,
     8): each rank runs msm_device.msm_point on its slice (a base from
-    msm_device.device_base, with its own identity row, and the matching
-    scalars, or a plan prebuilt from them), the projective partials are
-    gathered and folded."""
+    msm_device.device_base and the matching scalars, or a plan prebuilt
+    from them), the projective partials are gathered and folded."""
     if plan is None:
         plan = md.ScalarPlan(scalars_shard, c=c, device=base_shard.device)
     part = md.msm_point(curve, base_shard, plan=plan)
