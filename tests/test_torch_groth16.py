@@ -43,6 +43,7 @@ from zkpos_tpu_torch.groth16 import groth16 as tg16
 from zkpos_tpu_torch.groth16 import serialize as tser
 from zkpos_tpu_torch.ops import field as F
 from zkpos_tpu_torch.services import keygen as tkeygen
+from zkpos_tpu_torch.utils import trace as ttrace
 
 # the plain versions run many small ops: one thread per worker process
 # keeps them from oversubscribing the cores next to the other workers
@@ -167,6 +168,33 @@ def test_streamed_bases_prove_the_same_bytes(proved, monkeypatch):
     assert tser.proof_to_bytes(proof) == tser.proof_to_bytes(proved["tproof"])
     assert spans["chunks"] == {"msm_a": 2, "msm_b1": 2, "msm_b2": 2,
                                "msm_k": 2, "msm_z": 2}
+    # the prove traced (prove(spans=) runs inside trace.capture()): its
+    # stages under the root, each MSM's base copied in its own span, two
+    # chunks of a gather each, and the stage seconds from the spans
+    recs = ttrace.records()
+    root = [r for r in recs if r["name"] == "prove"][-1]
+    mine = [r for r in recs if r["root"] == root["id"] and r is not root]
+    by_id = {r["id"]: r for r in mine}
+
+    def stage_of(r):
+        while r["parent"] != root["id"]:
+            r = by_id[r["parent"]]
+        return r["name"]
+    stages = [r["name"] for r in mine if r["parent"] == root["id"]]
+    assert stages == ["compute_h", "plan_z", "msm_a", "msm_b1", "msm_b2",
+                      "msm_k", "msm_z", "assemble"]
+    for r in mine:
+        if r["parent"] == root["id"]:
+            assert spans[r["name"]] == r["end"] - r["start"]
+    for st in ("msm_a", "msm_b1", "msm_b2", "msm_k", "msm_z"):
+        kids = [r["name"] for r in mine if stage_of(r) == st]
+        assert kids.count("chunk") == 2 and kids.count("gather") == 2, st
+        assert kids.count("base_upload") == 1 and kids.count("msm") == 1
+    assert [r["name"] for r in mine if stage_of(r) == "assemble"
+            and r["name"] != "assemble"] == ["fixed"] * 3 + \
+        ["dependent"] * 2 + ["fixed"]
+    assert [r["name"] for r in mine if stage_of(r) == "compute_h"
+            and r["name"] != "compute_h"] == ["upload", "csr_eval", "ntt"]
     homes = {getattr(pk, name).data_ptr() for name, _ in tg16.MSM_BASES}
     prove_msms = copies[-5:]
     assert not homes & {ptr for ptr, _ in prove_msms}

@@ -26,7 +26,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..crypto.bn254 import R as MOD
-from ..utils import native
+from ..utils import native, trace
 from .cs import LC, ConstraintSystem
 
 _KINDS = {"bits": 0, "limbs": 1, "iszero": 2, "divmod": 3,
@@ -298,40 +298,34 @@ def solve(cs: ConstraintSystem, inputs: List[int],
             raise RuntimeError(
                 f"native solve failed: code {rc} at constraint {idx}")
 
-    import os as _os
-    import time as _time
-    trace = _os.environ.get("ZKPOS_TRACE") == "1"
-    t0 = _time.time()
+    # traced: solve.phase1 up to the commitment, solve.commit_msm, and
+    # solve.phase2 after it (the whole run when there is no commitment)
     commit_result = None
-    if p.challenge_wire is None:
-        run(0, p.n_cons)
-    else:
-        run(0, p.boundary)
-        rc = L.zk_solver_run_hints_until(p.hint_boundary)
-        if rc:
-            raise RuntimeError(f"native solve failed draining hints: {rc}")
-        if trace:
-            print(f'{{"span": "solve_vm_phase1", '
-                  f'"s": {_time.time() - t0:.2f}}}', flush=True)
-        t0 = _time.time()
-        wires = _i64(p.commit_wires)
-        zs = np.empty((len(wires), 4), dtype=np.uint64)
-        L.zk_solver_gather(_pp(wires, ctypes.c_longlong), len(wires),
-                           _pp(zs, ctypes.c_uint64))
-        d_pt, pok = commit_msm(commit_key, zs)
-        from ..groth16.hash_to_field import bsb22_challenge
-        cval = bsb22_challenge(d_pt)
-        cv = native.ints_to_limbs([cval], MOD)
-        L.zk_solver_set_wire(p.challenge_wire, _pp(cv, ctypes.c_uint64))
-        commit_result = (d_pt, pok, cval)
-        if trace:
-            print(f'{{"span": "solve_commit_msm", '
-                  f'"s": {_time.time() - t0:.2f}}}', flush=True)
-        t0 = _time.time()
-        run(p.boundary, p.n_cons)
-    if trace:
-        print(f'{{"span": "solve_vm_phase2", '
-              f'"s": {_time.time() - t0:.2f}}}', flush=True)
+    with trace.span("solve"):
+        if p.challenge_wire is None:
+            with trace.span("solve.phase2"):
+                run(0, p.n_cons)
+        else:
+            with trace.span("solve.phase1"):
+                run(0, p.boundary)
+                rc = L.zk_solver_run_hints_until(p.hint_boundary)
+                if rc:
+                    raise RuntimeError(
+                        f"native solve failed draining hints: {rc}")
+            with trace.span("solve.commit_msm"):
+                wires = _i64(p.commit_wires)
+                zs = np.empty((len(wires), 4), dtype=np.uint64)
+                L.zk_solver_gather(_pp(wires, ctypes.c_longlong),
+                                   len(wires), _pp(zs, ctypes.c_uint64))
+                d_pt, pok = commit_msm(commit_key, zs)
+                from ..groth16.hash_to_field import bsb22_challenge
+                cval = bsb22_challenge(d_pt)
+                cv = native.ints_to_limbs([cval], MOD)
+                L.zk_solver_set_wire(p.challenge_wire,
+                                     _pp(cv, ctypes.c_uint64))
+                commit_result = (d_pt, pok, cval)
+            with trace.span("solve.phase2"):
+                run(p.boundary, p.n_cons)
 
     values = np.empty((p.n_vars, 4), dtype=np.uint64)
     L.zk_solver_get(0, p.n_vars, _pp(values, ctypes.c_uint64))

@@ -25,9 +25,9 @@ Proof system (standard Groth16):
 
 from __future__ import annotations
 
-import secrets
-import time
+import contextlib
 import os
+import secrets
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -40,6 +40,7 @@ from ..ops import ec
 from ..ops import field as F
 from ..ops import msm_device as md
 from ..ops.msm import fixed_base_batch
+from ..utils import trace
 from ..utils.device import resolve
 from .ntt import root_of_unity
 from .qap_device import _cs_cache, _matrix_arrays, compute_h_device, pool_mont
@@ -309,16 +310,26 @@ def place_bases(pk: ProvingKey, budget: Optional[int] = None) -> ProvingKey:
     return pk
 
 
+def _product(kind: str, mul, point, k: int):
+    """mul(point, k), one host scalar product of the assembly, in a span
+    `kind`: "fixed" when it needs only r, s and the key, "dependent" when
+    it needs an MSM's sum."""
+    with trace.span(kind):
+        return mul(point, k)
+
+
 def prove(cs, pk: ProvingKey, rng=None, spans: Optional[dict] = None) -> Proof:
     """groth16.Prove (prover.go:269): witness from the solved system, H via
     the device NTT pipeline, five MSMs on the sorted-stream engine.  The
     witness's scalar plan is built once and shared by the A and B1 MSMs.
     A streamed base (pk.streamed) is copied to the device for its MSM and
-    freed after it.  With a `spans` dict, the seconds of each stage are
-    recorded in it (the device is synchronized at each stage boundary),
-    the chunks of each MSM in spans["chunks"], and on a card each stage's
-    peak device bytes in spans["peak_bytes"] (the peak is reset at each
-    boundary)."""
+    freed after it.  Traced (utils/trace.py), the root span `prove` holds
+    a span for each stage: compute_h, plan_z, msm_a, msm_b1, msm_b2, msm_k,
+    msm_z, assemble.  With a `spans` dict, the prove is traced, the device
+    is synchronized at each stage's end, and the seconds of each stage are
+    recorded in it, the chunks of each MSM in spans["chunks"], and on a
+    card each stage's peak device bytes in spans["peak_bytes"] (the peak
+    is reset at each boundary)."""
     if not cs.solve:
         raise ValueError("prove requires a solved constraint system")
     if pk.commit_wires is not None and cs._commit_key is None:
@@ -329,70 +340,87 @@ def prove(cs, pk: ProvingKey, rng=None, spans: Optional[dict] = None) -> Proof:
     r, s = rand(), rand()
 
     dev = pk.device
-    on_card = dev.type == "cuda"
-    t0 = [time.perf_counter()]
+    sync = spans is not None and dev.type == "cuda"
+    stages = []
     if spans is not None:
         chunks = spans.setdefault("chunks", {})
-        peaks = spans.setdefault("peak_bytes", {}) if on_card else None
-        if on_card:
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
+        peaks = spans.setdefault("peak_bytes", {}) if sync else None
 
-    def span(name):
-        if spans is not None:
-            if on_card:
-                torch.cuda.synchronize(dev)
+    def synchronize():
+        with trace.wait("trace"):
+            torch.cuda.synchronize(dev)
+
+    @contextlib.contextmanager
+    def stage(name):
+        with trace.span(name) as sp:
+            yield
+            if sync:
+                synchronize()
                 peaks[name] = torch.cuda.max_memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
-            t = time.perf_counter()
-            spans[name] = spans.get(name, 0.0) + t - t0[0]
-            t0[0] = t
+        stages.append((name, sp))
 
     def run(name, field_name, curve, **kw):
         pts = getattr(pk, field_name)
         if field_name in pk.streamed:
-            pts = pts.to(dev, non_blocking=True, copy=True)
+            with trace.span("base_upload"):
+                pts = pts.to(dev, non_blocking=True, copy=True)
         st = {}
         out = md.msm(curve, pts, stats=st, **kw)
         del pts                     # a streamed base's copy is freed here
         if spans is not None:
             chunks[name] = st["chunks"]
-        span(name)
         return out
 
-    zt = md.scalars_tensor(z, dev)
-    h = compute_h_device(cs, zt, pk.domain_size)
-    span("compute_h")
-    plan_z = md.ScalarPlan(zt, device=dev)
-    span("plan_z")
-    sum_a = run("msm_a", "a_g1", "g1", plan=plan_z)
-    sum_b1 = run("msm_b1", "b1_g1", "g1", plan=plan_z)
-    # G2: narrower windows at scale (16x smaller bucket grid over six
-    # coordinates), as the reference engine
-    plan_z2 = md.ScalarPlan(zt, c=12, device=dev) if zt.shape[0] > (1 << 17) \
-        else plan_z
-    del plan_z
-    sum_b2 = run("msm_b2", "b_g2", "g2", plan=plan_z2)
-    del plan_z2
-    krs_priv = run("msm_k", "k_g1", "g1", scalars=zt[pk.num_public:])
-    krs_h = run("msm_z", "z_g1", "g1", scalars=h)
+    with (trace.capture() if spans is not None else contextlib.nullcontext()),\
+            trace.span("prove"):
+        if sync:
+            synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        with stage("compute_h"):
+            with trace.span("upload"):
+                zt = md.scalars_tensor(z, dev)
+            h = compute_h_device(cs, zt, pk.domain_size)
+        with stage("plan_z"):
+            plan_z = md.ScalarPlan(zt, device=dev)
+        with stage("msm_a"):
+            sum_a = run("msm_a", "a_g1", "g1", plan=plan_z)
+        with stage("msm_b1"):
+            sum_b1 = run("msm_b1", "b1_g1", "g1", plan=plan_z)
+        with stage("msm_b2"):
+            # G2: narrower windows at scale (16x smaller bucket grid over
+            # six coordinates), as the reference engine
+            plan_z2 = md.ScalarPlan(zt, c=12, device=dev) \
+                if zt.shape[0] > (1 << 17) else plan_z
+            del plan_z
+            sum_b2 = run("msm_b2", "b_g2", "g2", plan=plan_z2)
+        del plan_z2
+        with stage("msm_k"):
+            krs_priv = run("msm_k", "k_g1", "g1", scalars=zt[pk.num_public:])
+        with stage("msm_z"):
+            krs_h = run("msm_z", "z_g1", "g1", scalars=h)
 
-    ar = bn.g1_add(bn.g1_add(pk.alpha_g1, sum_a),
-                   bn.g1_mul(pk.delta_g1, r))
-    bs = bn.g2_add(bn.g2_add(pk.beta_g2, sum_b2),
-                   bn.g2_mul(pk.delta_g2, s))
-    b1 = bn.g1_add(bn.g1_add(pk.beta_g1, sum_b1),
-                   bn.g1_mul(pk.delta_g1, s))
-    krs = bn.g1_add(krs_priv, krs_h)
-    krs = bn.g1_add(krs, bn.g1_mul(ar, s))
-    krs = bn.g1_add(krs, bn.g1_mul(b1, r))
-    krs = bn.g1_add(krs, bn.g1_neg(bn.g1_mul(pk.delta_g1, r * s % MOD)))
-    d_pt = pok = None
-    if pk.commit_wires is not None:
-        if cs._commit_result is None:
-            raise RuntimeError("commitment circuit solved without key")
-        d_pt, pok, _cval = cs._commit_result
-    span("assemble")
+        with stage("assemble"):
+            ar = bn.g1_add(bn.g1_add(pk.alpha_g1, sum_a),
+                           _product("fixed", bn.g1_mul, pk.delta_g1, r))
+            bs = bn.g2_add(bn.g2_add(pk.beta_g2, sum_b2),
+                           _product("fixed", bn.g2_mul, pk.delta_g2, s))
+            b1 = bn.g1_add(bn.g1_add(pk.beta_g1, sum_b1),
+                           _product("fixed", bn.g1_mul, pk.delta_g1, s))
+            krs = bn.g1_add(krs_priv, krs_h)
+            krs = bn.g1_add(krs, _product("dependent", bn.g1_mul, ar, s))
+            krs = bn.g1_add(krs, _product("dependent", bn.g1_mul, b1, r))
+            krs = bn.g1_add(krs, bn.g1_neg(_product(
+                "fixed", bn.g1_mul, pk.delta_g1, r * s % MOD)))
+            d_pt = pok = None
+            if pk.commit_wires is not None:
+                if cs._commit_result is None:
+                    raise RuntimeError("commitment circuit solved without "
+                                       "key")
+                d_pt, pok, _cval = cs._commit_result
+    if spans is not None:
+        for name, sp in stages:
+            spans[name] = spans.get(name, 0.0) + sp.seconds
     return Proof(ar=ar, bs=bs, krs=krs, d=d_pt, pok=pok)
 
 

@@ -17,6 +17,7 @@ import torch
 
 from ..crypto.bn254 import R as MOD
 from ..ops import field as F
+from ..utils import trace
 from .ntt_device import ntt_mont
 
 # Cache keyed by the IDENTITY of the constraint data (FlatConstraints is
@@ -117,10 +118,14 @@ def compute_h_device(cs, z: torch.Tensor, d: int) -> torch.Tensor:
     """H(X) coefficients of (A*B - C)/Z from the standard-form witness
     (N, 8) tensor.  Returns (d - 1, 8) standard-form rows on z's device."""
     z_mont = F.to_mont(z)
-    av = eval_matrix_device(cs, z_mont, 0, d)
-    bv = eval_matrix_device(cs, z_mont, 1, d)
-    cv = eval_matrix_device(cs, z_mont, 2, d)
-    h = F.from_mont(_h_fn(d, av, bv, cv))
-    if bool((h[d - 1] != 0).any()):
+    with trace.span("csr_eval", device=z.device):
+        av = eval_matrix_device(cs, z_mont, 0, d)
+        bv = eval_matrix_device(cs, z_mont, 1, d)
+        cv = eval_matrix_device(cs, z_mont, 2, d)
+    with trace.span("ntt", device=z.device):
+        h = F.from_mont(_h_fn(d, av, bv, cv))
+    with trace.wait("h_degree"):
+        high = bool((h[d - 1] != 0).any())
+    if high:
         raise ValueError("H degree too large — unsatisfied constraints?")
     return h[:d - 1].contiguous()

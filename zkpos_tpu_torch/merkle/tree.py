@@ -27,6 +27,7 @@ from ..crypto.poseidon_ref import poseidon
 from ..ops import field as F
 from ..ops.poseidon_sparse import hash2_mont_sparse
 from ..utils import constants as C
+from ..utils import trace
 from ..utils.constants import nil_account_hash_int
 from ..utils.device import resolve
 
@@ -90,27 +91,33 @@ class AccountTree:
 
     def build_from_mont_leaves(self, cur: torch.Tensor) -> None:
         """cur: (N, 8) Montgomery rows on the tree's device; kept as the
-        leaf level.  One node-hash launch per populated level."""
+        leaf level.  One node-hash launch per populated level.  Traced,
+        the root span `build` holds a device span `level` a launch (its
+        `hashes`) and `root_read`, the read of the populated root."""
         n = cur.shape[0]
         if n > (1 << self.depth):
             raise ValueError("too many leaves")
         if n == 0:
             self.levels = []
             return
-        self.levels = [cur]
-        level = 0
-        while cur.shape[0] > 1:
-            if cur.shape[0] % 2:
-                cur = torch.cat([cur, self._nil_mont(level)])
-            cur = hash2_mont_sparse(cur[0::2], cur[1::2])
-            level += 1
-            self.levels.append(cur)
-        # fold the populated-subtree root with nil siblings up to full depth
-        node = fr_from_bytes(self._read(level, [0])[0])
-        for k in range(level, self.depth):
-            node = poseidon([node, self.nils[k]])
-            self.levels.append(F.ints_to_tensor([node * F.RMONT % MOD],
-                                                self.device))
+        with trace.span("build"):
+            self.levels = [cur]
+            level = 0
+            while cur.shape[0] > 1:
+                if cur.shape[0] % 2:
+                    cur = torch.cat([cur, self._nil_mont(level)])
+                with trace.span("level", device=self.device,
+                                hashes=cur.shape[0] // 2):
+                    cur = hash2_mont_sparse(cur[0::2], cur[1::2])
+                level += 1
+                self.levels.append(cur)
+            # fold the populated-subtree root with nil siblings to full depth
+            with trace.span("root_read"):
+                node = fr_from_bytes(self._read(level, [0])[0])
+            for k in range(level, self.depth):
+                node = poseidon([node, self.nils[k]])
+                self.levels.append(F.ints_to_tensor([node * F.RMONT % MOD],
+                                                    self.device))
 
     # -- reading --------------------------------------------------------------
 

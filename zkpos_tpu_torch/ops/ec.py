@@ -23,7 +23,7 @@ from typing import List, Optional
 import torch
 
 from ..crypto import bn254 as bn
-from ..utils import build
+from ..utils import build, trace
 from . import field as F
 from .field import count_launch
 
@@ -61,7 +61,9 @@ def to_affine(pts: torch.Tensor) -> List[Optional[tuple]]:
     Inversions run in Python: meant for the few points read back."""
     na = pts.shape[1]
     rinv = pow(F.RMONT, -1, F.FP_MOD)
-    vals = [v * rinv % F.FP_MOD for v in F.tensor_to_ints(pts.reshape(-1, 8))]
+    with trace.wait("readback"):
+        rows = pts.reshape(-1, 8).cpu()
+    vals = [v * rinv % F.FP_MOD for v in F.tensor_to_ints(rows)]
     out = []
     for i in range(pts.shape[0]):
         c = vals[na * i:na * (i + 1)]
@@ -396,7 +398,8 @@ def seg_sums(pts: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
     if _check_scan_args(pts, heads, "seg_sums") == "cpu":
         return plain_seg_sums(pts, heads)
     n = pts.shape[0]
-    S = 1 + int(heads[1:].sum()) if n else 0
+    with trace.wait("seg_sums"):
+        S = 1 + int(heads[1:].sum()) if n else 0
     out = torch.empty((S, pts.shape[1], 8), dtype=torch.int32,
                       device=pts.device)
     return _seg_launch("sums", pts, heads, out) if n else out

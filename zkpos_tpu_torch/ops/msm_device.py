@@ -49,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import resolve
 from . import ec
 from . import field as F
@@ -109,10 +110,12 @@ class ScalarPlan:
     """Window digits of one scalar vector, sorted per window on the device
     and shared by every MSM over the same scalars (A/B1 in groth16.prove).
     `dig` / `idx`: (W, Np) int32, idx the base row of each sorted digit
-    (row 0 in the padding columns, whose digit is 0).  `chunk`: columns of
-    the stream a chunk walks, 0 to decide at each MSM."""
+    (row 0 in the padding columns, whose digit is 0).  `nonzero`: each
+    window's non-zero digits, K the most of them.  `chunk`: columns of the
+    stream a chunk walks, 0 to decide at each MSM."""
 
-    __slots__ = ("n", "c", "W", "K", "Np", "chunk", "dig", "idx", "device")
+    __slots__ = ("n", "c", "W", "K", "Np", "chunk", "dig", "idx", "device",
+                 "nonzero")
 
     def __init__(self, scalars, c: Optional[int] = None, device=None,
                  windows: Optional[int] = None, chunk: int = 0):
@@ -136,17 +139,24 @@ class ScalarPlan:
         self.chunk = chunk
         self.Np = -(-max(self.n, 1) // PAD_QUANTUM) * PAD_QUANTUM
         self.K = 0
+        self.nonzero = []
         self.dig = self.idx = None
         if self.n == 0:
             return
-        pad = self.Np - self.n
+        with trace.span("plan"):
+            self._sort(sc, W_all)
+
+    def _sort(self, sc: torch.Tensor, W_all: int) -> None:
+        dev, pad = self.device, self.Np - self.n
         dig = torch.empty((self.W, self.Np), dtype=torch.int32, device=dev)
         idx = torch.empty((self.W, self.Np), dtype=torch.int32, device=dev)
         nonzero = []
         for w in range(W_all):
             d = window_digits(sc, self.c, w)
             if w >= self.W:
-                if bool((d != 0).any()):
+                with trace.wait("plan"):
+                    above = bool((d != 0).any())
+                if above:
                     raise ValueError(
                         f"a scalar is not below 2^{self.c * self.W}")
                 continue
@@ -155,9 +165,23 @@ class ScalarPlan:
                                        stable=True)
             idx[w] = (order - pad).clamp_(min=0)
             del d, order
-        self.K = int(torch.stack(nonzero).max())
+        with trace.wait("plan"):
+            self.nonzero = torch.stack(nonzero).tolist()
+        self.K = max(self.nonzero)
         if self.K:
             self.dig, self.idx = dig, idx
+
+    @property
+    def entries(self) -> int:
+        """Stream entries an MSM over this plan walks: W x Np, or none
+        when every scalar is zero."""
+        return self.W * self.Np if self.K else 0
+
+    @property
+    def zero_entries(self) -> int:
+        """Walked entries whose digit is 0 (the padding's included): each
+        is gathered and summed into bucket 0, whose weight is 0."""
+        return self.entries - sum(self.nonzero) if self.K else 0
 
 
 def device_base(curve: str, points, device=None) -> torch.Tensor:
@@ -177,7 +201,10 @@ def sorted_stream(plan: ScalarPlan, base: torch.Tensor, lo: int = 0,
     sorted digit order, and heads where the digit changes and at every
     window start."""
     hi = plan.Np if hi is None else hi
-    pts = base.index_select(0, plan.idx[:, lo:hi].reshape(-1).long())
+    idx = plan.idx[:, lo:hi].reshape(-1).long()
+    with trace.span("gather", device=base.device, entries=idx.shape[0]):
+        pts = base.index_select(0, idx)
+    del idx                 # freed before the heads, as a temporary would be
     dig = plan.dig[:, lo:hi]
     heads = torch.ones(dig.shape, dtype=torch.bool, device=base.device)
     heads[:, 1:] = dig[:, 1:] != dig[:, :-1]
@@ -269,26 +296,36 @@ def _bucket_sums(na: int, plan: ScalarPlan, base: torch.Tensor, Cn: int):
     dense = ec.identity(na, W * nb, base.device)
     for lo in range(0, Np, Cn):
         hi = min(lo + Cn, Np)
-        m = hi - lo
-        pts, heads = sorted_stream(plan, base, lo, hi)
+        with trace.span("chunk"):
+            _chunk(plan, base, dense, lo, hi)
+    return dense.reshape(W, nb, na, 8)
+
+
+def _chunk(plan: ScalarPlan, base: torch.Tensor, dense: torch.Tensor,
+           lo: int, hi: int) -> None:
+    """Columns [lo, hi) of the stream summed into the bucket grid."""
+    W, m, nb, dev = plan.W, hi - lo, 1 << plan.c, base.device
+    pts, heads = sorted_stream(plan, base, lo, hi)
+    with trace.span("sums", device=dev):
         sums = ec.seg_sums(pts, heads)
         del pts
-        at = heads.nonzero().flatten()        # each segment's head
+        with trace.wait("nonzero"):
+            at = heads.nonzero().flatten()    # each segment's head
         w = at // m
         slot = w * nb + plan.dig[w, lo + at % m].long()
         del at, w
         if lo == 0:
             dense[slot] = sums
-            continue
-        # each window's first segment: the rest of a bucket of the chunks
-        # before when its digit continues (the grid holds their part), a
-        # new bucket (the grid holds the identity) when it does not
+            return
+    # each window's first segment: the rest of a bucket of the chunks
+    # before when its digit continues (the grid holds their part), a new
+    # bucket (the grid holds the identity) when it does not
+    with trace.span("carry", device=dev):
         count = heads.reshape(W, m).sum(dim=1)
         first = torch.cumsum(count, 0) - count
         part = ec.point_add(dense[slot[first]], sums[first])
         dense[slot] = sums
         dense[slot[first]] = part
-    return dense.reshape(W, nb, na, 8)
 
 
 def _fold(na: int, W: int, c: int, dense: torch.Tensor) -> torch.Tensor:
@@ -313,24 +350,36 @@ def msm_point(curve: str, base: torch.Tensor, scalars=None,
     projective point on the base's device (the identity when every scalar
     is zero).  Either `scalars` or a prebuilt `plan` must be given.  With
     a `stats` dict, the chunks walked and their columns are recorded in
-    it ("chunks", "columns"; 0 and 0 when every scalar is zero)."""
+    it ("chunks", "columns"; 0 and 0 when every scalar is zero).  Traced,
+    the span `msm` holds the same, and counts the stream's `entries` and
+    its `zero_entries`."""
     na = 3 if curve == "g1" else 6
-    if plan is None:
-        plan = ScalarPlan(scalars, device=base.device)
-    Cn = plan_columns(plan, na, base.device) if plan.K else 0
-    if stats is not None:
-        stats["columns"] = Cn
-        stats["chunks"] = -(-plan.Np // Cn) if Cn else 0
-    if plan.K == 0:
-        return ec.identity(na, 1, base.device)
-    dense = _bucket_sums(na, plan, base, Cn)
-    rw = _fold(na, plan.W, plan.c, dense)
-    del dense
-    return ec.horner(rw, plan.c)
+    dev = base.device
+    with trace.span("msm") as sp:
+        if plan is None:
+            plan = ScalarPlan(scalars, device=dev)
+        Cn = plan_columns(plan, na, dev) if plan.K else 0
+        chunks = -(-plan.Np // Cn) if Cn else 0
+        if stats is not None:
+            stats["columns"] = Cn
+            stats["chunks"] = chunks
+        sp.set(chunks=chunks, columns=Cn)
+        trace.count("entries", plan.entries)
+        trace.count("zero_entries", plan.zero_entries)
+        if plan.K == 0:
+            return ec.identity(na, 1, dev)
+        dense = _bucket_sums(na, plan, base, Cn)
+        with trace.span("fold", device=dev):
+            rw = _fold(na, plan.W, plan.c, dense)
+        del dense
+        with trace.span("horner", device=dev):
+            return ec.horner(rw, plan.c)
 
 
 def msm(curve: str, base: torch.Tensor, scalars=None,
         plan: Optional[ScalarPlan] = None, stats: Optional[dict] = None):
     """msm_point as an affine host point, or None when the sum is the
     identity (every scalar zero included)."""
-    return ec.to_affine(msm_point(curve, base, scalars, plan, stats))[0]
+    pt = msm_point(curve, base, scalars, plan, stats)
+    with trace.span("readback"):
+        return ec.to_affine(pt)[0]
